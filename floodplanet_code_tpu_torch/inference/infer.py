@@ -1,0 +1,182 @@
+"""Unlabeled batch inference CLI (port of
+``floodplanet_code_tpu/inference/infer.py``; reference: st_water_seg/infer.py).
+
+Loads a weights file, runs sliding-window inference over a dataset split
+on the card, and writes binary flood-water masks as *georeferenced* uint8
+GeoTIFFs per region/scene, carrying the source scene's geo tags.
+
+The reference forces non-overlapping tiles at infer time
+(stride = min(crop_h, crop_w), infer.py:64-65); reproduced here.
+
+The weights file is a state dict written by
+``tools/import_jax_params.save_weights`` (orbax checkpoints need JAX; the
+bridge converts them). Its experiment config is found as the JAX CLI finds
+it: ``<experiment>/<sub>/<weights file>`` with the config snapshot under
+``<experiment>/hydra/config.yaml``.
+
+    python -m floodplanet_code_tpu_torch.inference.infer \\
+        <experiment>/weights/model.pt floodplanet test [--tta] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from floodplanet_code_tpu_torch.config import load_experiment_config
+from floodplanet_code_tpu_torch.data import build_dataset, generate_image_slice_object
+from floodplanet_code_tpu_torch.device import resolve_device
+from floodplanet_code_tpu_torch.geo import tiff
+from floodplanet_code_tpu_torch.inference.sliding import (
+    resolve_inference_batch_size,
+    sliding_window_predict,
+)
+from floodplanet_code_tpu_torch.models import build_model, resolve_conv_impl
+from floodplanet_code_tpu_torch.tools.import_jax_params import load_weights
+
+
+def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
+    """Build the configured model on ``device`` and load ``weights_path``
+    into it (``strict=True``); returns the eval-mode model."""
+    compute_dtype = {
+        "bfloat16": torch.bfloat16,
+        "float32": torch.float32,
+    }[cfg.select("tpu.compute_dtype", "bfloat16")]
+    model = build_model(
+        cfg.model.name,
+        dataset.n_channels,
+        dataset.n_classes,
+        dtype=compute_dtype,
+        device=device,
+        conv_impl=resolve_conv_impl(cfg),
+        **(cfg.model.get("model_kwargs") or {}),
+    )
+    model.load_state_dict(load_weights(weights_path), strict=True)
+    return model
+
+
+def build_infer_dataset(cfg, dataset_name: str, split: str, eval_region=None,
+                        root_dir: str | None = None):
+    """The dataset ``infer`` tiles: non-overlapping crops (reference
+    infer.py:64-65), metadata on. ``root_dir`` None reads
+    ``dataset_dirs.json``."""
+    slice_params = generate_image_slice_object(
+        cfg.crop_height,
+        cfg.crop_width,
+        stride=min(cfg.crop_height, cfg.crop_width),
+    )
+    dataset_kwargs = dict(cfg.dataset.get("dataset_kwargs") or {})
+    if root_dir is not None:
+        dataset_kwargs["root_dir"] = root_dir
+    return build_dataset(
+        dataset_name,
+        split,
+        slice_params,
+        sensor=cfg.dataset.sensor,
+        channels=cfg.dataset.channels,
+        norm_mode=cfg.norm_mode,
+        eval_region=eval_region if eval_region is not None else cfg.eval_region,
+        ignore_index=cfg.ignore_index,
+        seed_num=cfg.select("seed_num"),
+        train_split_pct=cfg.select("train_split_pct", 0.8),
+        output_metadata=True,
+        **dataset_kwargs,
+    )
+
+
+def infer(
+    cfg,
+    weights_path: str | None,
+    dataset_name: str,
+    split: str,
+    save_dir: str,
+    eval_region=None,
+    n_workers: int | None = None,
+    tta: bool = False,
+    warm=None,
+    dataset=None,
+    device="cuda",
+) -> list[str]:
+    """Run inference and export masks; returns the written mask paths.
+
+    ``tta``: dihedral test-time augmentation (8 forwards per tile).
+    ``warm``: a model already on ``device`` from an earlier call (then
+    ``weights_path`` is not read) — a server keeps one model across
+    requests. ``dataset``: a pre-built dataset for the same cfg/split
+    (see ``build_infer_dataset``). Raises without a card unless
+    ``device="cpu"``.
+    """
+    device = resolve_device(device)
+    if dataset is None:
+        dataset = build_infer_dataset(cfg, dataset_name, split, eval_region)
+    model = warm
+    if model is None:
+        model = load_model_for_eval(cfg, weights_path, dataset, device)
+
+    written = []
+    for scene in sliding_window_predict(
+        model,
+        dataset,
+        batch_size=resolve_inference_batch_size(cfg),
+        n_workers=n_workers or cfg.n_workers,
+        device=device,
+        tta=tta,
+    ):
+        probs = scene["probabilities"]
+        # argmax -> clip to binary water mask (reference infer.py:179-181):
+        # class-2 predictions clip to water, matching np.clip(pred, 0, 1).
+        mask = np.minimum(probs.argmax(axis=-1), 1).astype(np.uint8)
+        region_dir = os.path.join(save_dir, scene["region"] + "_pred")
+        os.makedirs(region_dir, exist_ok=True)
+        out_path = os.path.join(region_dir, scene["image_name"] + ".tif")
+        tiff.imwrite(out_path, mask * 255, geo_from=scene["image_path"])
+        written.append(out_path)
+    return written
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Batch flood-mask inference from a weights file."
+    )
+    parser.add_argument("weights_path", type=str)
+    parser.add_argument("dataset_name", type=str)
+    parser.add_argument("split", type=str, choices=["train", "valid", "test", "all"])
+    parser.add_argument("--eval_region", type=str, default=None)
+    parser.add_argument("--save_dir", type=str, default=None)
+    parser.add_argument("--n_workers", type=int, default=None)
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument(
+        "--tta",
+        action="store_true",
+        help="Dihedral test-time augmentation: average tile softmax over "
+        "the 8 square-symmetry transforms (~8x forward cost).",
+    )
+    args = parser.parse_args(argv)
+
+    experiment_dir = os.path.dirname(
+        os.path.dirname(os.path.normpath(args.weights_path))
+    )
+    cfg = load_experiment_config(experiment_dir)
+    save_dir = args.save_dir or os.path.join(
+        experiment_dir, "inference", args.dataset_name, args.split
+    )
+    written = infer(
+        cfg,
+        args.weights_path,
+        args.dataset_name,
+        args.split,
+        save_dir,
+        eval_region=args.eval_region,
+        n_workers=args.n_workers,
+        tta=args.tta,
+        device=args.device,
+    )
+    print(f"Wrote {len(written)} masks under {save_dir}")
+    return written
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,254 @@
+"""Fused BN-apply + ReLU + 3x3 conv: ``conv3x3_SAME(relu(y*a + b), w)``.
+
+The port of ``floodplanet_code_tpu/ops/conv_fused.py``. Inside a UNet
+DoubleConv the first conv's BatchNorm is folded into a per-channel affine
+``(a, b)`` and, instead of materializing ``z = relu(y*a + b)`` in device
+memory, the second conv's kernel applies it to each input tile as it loads
+it (``csrc/conv_fused.cu``, a hand-written CUDA kernel for ``sm_90a``).
+SAME padding applies to ``z``: taps outside the image add 0, not relu(b).
+
+- ``relu_affine_conv3x3``: the op. On a CUDA tensor it launches the kernel
+  (a build or launch error raises); on a CPU tensor it runs
+  ``relu_affine_conv3x3_plain``. Its backward recomputes ``z`` and
+  differentiates the plain version, as the JAX package's custom VJP does.
+- ``relu_affine_conv3x3_plain``: the same function in plain PyTorch, in
+  y's dtype: the CPU path, and the oracle the kernel is held to.
+- ``pack``: the kernel's padded, tap-major layout of (a, b, w).
+- ``build``: compiles the kernel with ``nvcc`` into ``_build/`` (once per
+  source version) and returns the library path.
+
+Tensors are PyTorch's NCHW with ``channels_last`` memory, so the kernel
+reads NHWC. ``w`` is a conv weight in PyTorch's OIHW layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from floodplanet_code_tpu_torch.ops import LAUNCHES
+
+KERNEL = "relu_affine_conv3x3"
+_SRC = os.path.join(os.path.dirname(__file__), "csrc", "conv_fused.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
+# KC and BN of conv_fused.cu: the kernel walks input channels KC at a time
+# and computes BN output channels per block; the wrapper zero-pads a, b and
+# w to these multiples.
+_K_CHUNK = 32
+_N_BLOCK = 64
+
+_lib_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_prepared: set[int] = set()  # devices on which fp_prepare has run
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                           f"{_SRC}")
+    return path
+
+
+def build() -> tuple[str, str]:
+    """Compile ``conv_fused.cu`` for ``sm_90a`` unless this source version
+    is already built. Returns (library path, compiler report); the report
+    (``ptxas -v``: registers, shared memory, spills) is empty when the
+    library was already there."""
+    with open(_SRC, "rb") as handle:
+        digest = hashlib.sha1(handle.read()).hexdigest()[:12]
+    lib_path = os.path.join(_BUILD_DIR, f"libconv_fused_{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path, ""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(),
+        "-gencode=arch=compute_90a,code=sm_90a",
+        "-std=c++17",
+        "-O3",
+        "-Xptxas=-v",
+        "-shared",
+        "-Xcompiler",
+        "-fPIC",
+        "-o",
+        tmp,
+        _SRC,
+    ]
+    result = subprocess.run(cmd, capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {_SRC}:\n{result.stdout}\n{result.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a half file
+    return lib_path, result.stdout + result.stderr
+
+
+def _load(device: torch.device) -> ctypes.CDLL:
+    """The kernel library, built and loaded once, prepared for ``device``."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build()[0])
+            lib.fp_prepare.restype = ctypes.c_int
+            lib.fp_relu_affine_conv3x3.restype = ctypes.c_int
+            lib.fp_relu_affine_conv3x3.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int
+            ] * 9 + [ctypes.c_void_p]
+            lib.fp_cuda_error_string.restype = ctypes.c_char_p
+            lib.fp_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+        if device.index not in _prepared:
+            with torch.cuda.device(device):
+                err = _lib.fp_prepare()
+            if err != 0:
+                raise RuntimeError(
+                    f"{KERNEL}: preparing {device} failed: "
+                    f"{_lib.fp_cuda_error_string(err).decode()}"
+                )
+            _prepared.add(device.index)
+        return _lib
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def relu_affine_conv3x3_plain(y, a, b, w):
+    """``conv3x3_SAME(relu(y*a + b), w)`` in y's dtype, unfused.
+
+    As ``floodplanet_code_tpu/ops/conv_fused.py::xla_reference``: a, b and
+    w are cast to y's dtype first, and the affine runs as two tensor ops.
+    """
+    dt = y.dtype
+    z = F.relu(y * a.to(dt).view(1, -1, 1, 1) + b.to(dt).view(1, -1, 1, 1))
+    return F.conv2d(z, w.to(dt), padding=1)
+
+
+def _check(y, a, b, w) -> None:
+    if y.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (y.shape[1], 3, 3):
+        raise ValueError(
+            f"want y [B,C1,H,W] and w [C2,C1,3,3]; got {tuple(y.shape)}, "
+            f"{tuple(w.shape)}"
+        )
+    if a.shape != (y.shape[1],) or b.shape != (y.shape[1],):
+        raise ValueError(f"a and b must be [C1={y.shape[1]}]")
+    if any(t.device != y.device for t in (a, b, w)):
+        raise ValueError("y, a, b and w must be on one device")
+
+
+def pack(a, b, w, dtype):
+    """The kernel's operands ``(ap, bp, wp)`` from the op's ``(a, b, w)``.
+
+    a, b and w are cast to ``dtype`` (y's; the JAX package's
+    conv_fused.py:188-190) and zero-padded so every staged tile is in
+    range: ap, bp [C1p]; wp [9, C1p, C2p], tap-major. They depend only on
+    the parameters, so a model packs them once (``models/unet.py``).
+    """
+    c2, c1 = w.shape[:2]
+    c1p, c2p = _round_up(c1, _K_CHUNK), _round_up(c2, _N_BLOCK)
+    ap = torch.zeros(c1p, dtype=dtype, device=w.device)
+    ap[:c1] = a.to(dtype)
+    bp = torch.zeros(c1p, dtype=dtype, device=w.device)
+    bp[:c1] = b.to(dtype)
+    wp = torch.zeros(9, c1p, c2p, dtype=dtype, device=w.device)
+    wp[:, :c1, :c2] = w.to(dtype).permute(2, 3, 1, 0).reshape(9, c1, c2)
+    return ap, bp, wp
+
+
+def relu_affine_conv3x3_cuda(y, a, b, w, packed=None):
+    """Launch the CUDA kernel. y: [B,C1,H,W] f32 or bf16 on a card; a, b:
+    [C1]; w: [C2,C1,3,3]; ``packed``: ``pack(a, b, w, y.dtype)`` made
+    earlier, else it is made here. Returns [B,C2,H,W] channels_last in y's
+    dtype."""
+    _check(y, a, b, w)
+    if not y.is_cuda:
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {y.device}")
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel supports float32 and bfloat16, not {y.dtype}")
+    bsz, c1, h, wid = y.shape
+    c2 = w.shape[0]
+    dt, dev = y.dtype, y.device
+    y = y.contiguous(memory_format=torch.channels_last)
+    ap, bp, wp = pack(a, b, w, dt) if packed is None else packed
+    c1p, c2p = wp.shape[1:]
+    if wp.shape != (9, _round_up(c1, _K_CHUNK), _round_up(c2, _N_BLOCK)) or any(
+        t.dtype != dt or t.device != dev for t in (ap, bp, wp)
+    ):
+        raise ValueError(f"packed operands do not fit y {tuple(y.shape)} {dt}, C2={c2}")
+    out = torch.empty(
+        (bsz, c2, h, wid), dtype=dt, device=dev, memory_format=torch.channels_last
+    )
+    if out.numel() == 0:
+        return out
+    lib = _load(dev)
+    vec = int(c1 % 8 == 0 and y.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        err = lib.fp_relu_affine_conv3x3(
+            y.data_ptr(), ap.data_ptr(), bp.data_ptr(), wp.data_ptr(),
+            out.data_ptr(), bsz, h, wid, c1, c2, c1p, c2p,
+            int(dt == torch.bfloat16), vec,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{KERNEL} launch failed: {lib.fp_cuda_error_string(err).decode()} "
+            f"(y {tuple(y.shape)} {dt}, C2={c2})"
+        )
+    LAUNCHES[KERNEL] += 1
+    return out
+
+
+class _ReluAffineConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, a, b, w, packed):
+        ctx.save_for_backward(y, a, b, w)
+        if y.is_cuda:
+            return relu_affine_conv3x3_cuda(y, a, b, w, packed)
+        if y.device.type == "cpu":
+            return relu_affine_conv3x3_plain(y, a, b, w)
+        raise ValueError(f"no {KERNEL} for device {y.device}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Recompute z and differentiate the unfused chain (the JAX
+        # package's _bwd, conv_fused.py:228-234): the same expression the
+        # kernel evaluates, so gradients equal the unfused path's.
+        saved = ctx.saved_tensors
+        inputs = [
+            t.detach().requires_grad_(need)
+            for t, need in zip(saved, ctx.needs_input_grad)
+        ]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not wanted:
+            return (None,) * 5
+        with torch.enable_grad():
+            out = relu_affine_conv3x3_plain(*inputs)
+            grads = iter(
+                torch.autograd.grad(out, wanted, grad.to(saved[0].dtype))
+            )
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def relu_affine_conv3x3(y, a, b, w, packed=None):
+    """``conv3x3_SAME(relu(y*a + b), w)`` with z never in device memory.
+
+    y: [B,C1,H,W] in the compute dtype; a, b: [C1] (the folded BN apply,
+    f32); w: [C2,C1,3,3] f32 params; ``packed``: the kernel's operands from
+    ``pack`` (made per call when None). Returns [B,C2,H,W] in y's dtype. A
+    CUDA tensor runs the kernel, a CPU tensor the plain version.
+    """
+    return _ReluAffineConv3x3.apply(y, a, b, w, packed)
