@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
 Run from the repository root, with no arguments:
 
@@ -8,32 +9,48 @@ Run from the repository root, with no arguments:
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build: the fused-conv CUDA kernel (nvcc, sm_90a) and the native TIFF
-   library, from this checkout's sources, in parallel;
-3. kernel parity: the kernel against its plain PyTorch version on the card
-   at the nine DoubleConv shapes of the full-width UNet (batch 2), an odd
-   shape, channel tails and a b > 0 case, in f32 and bf16;
+2. build: the two CUDA kernels (nvcc, sm_90a: the fused conv and the row
+   shear) and the native TIFF library, from this checkout's sources, in
+   parallel;
+3. kernel parity: the fused conv against its plain PyTorch version on the
+   card at the nine DoubleConv shapes of the full-width UNet (batch 2), an
+   odd shape, channel tails and a b > 0 case, in f32 and bf16;
 4. kernel timing: kernel, plain chain and one cuDNN conv of the
    materialized z, per level at batch 16 (CUDA events), beside the bound;
    the kernel's batch-16 output is held to the plain chain's;
-5. the slice: synthetic PlanetScope scenes written with the port's TIFF
-   writer, the full-width early-fusion UNet (base 64, 4 bands, 3 classes,
-   bf16, conv_impl=pallas_fused) with seeded flax-layout weights carried
-   through the weights bridge, three ``infer`` requests on one warm model
-   (two plain, one with TTA) and one overlapping ``sliding_window_predict``
-   pass; masks, probabilities, kernel launches (9 per forward) and the
-   agreement with the unfused cuDNN path (argmax and probabilities) are
-   checked.
+5. the slice (serving): synthetic PlanetScope scenes written with the
+   port's TIFF writer, the full-width early-fusion UNet (base 64, 4 bands,
+   3 classes, bf16, conv_impl=pallas_fused) with seeded flax-layout weights
+   carried through the weights bridge, three ``infer`` requests on one warm
+   model (two plain, one with TTA) and one overlapping
+   ``sliding_window_predict`` pass; masks, probabilities, kernel launches
+   (9 per forward) and the agreement with the unfused cuDNN path are
+   checked;
+6. shear parity: the row-shear kernel against its plain version at
+   [8, 512, 512, 6] and [2, 300, 300, 6], both axes, order 0 and 1, f32 and
+   bf16, five residual angles; label and validity channels bit-equal;
+7. shear timing: the kernel's device time (a trace), the wrapper's time
+   per call, the plain version and one ``F.grid_sample`` per launch at
+   [8, 512, 512, 6] bf16, beside the bytes bound;
+8. training: augmentation (flips + rotation, rotate_impl=shear_pallas,
+   bf16) and train steps (Adam, lr 1e-4) of the full-width model at batch 8
+   on 512^2 crops through the loader, then steps on one fixed augmented
+   batch (the loss must fall), eval steps before and after the updates and
+   after one optimizer step alone (the pack cache must re-pack each time;
+   the fused eval must agree with the unfused model), exact launch counts
+   of both kernels, one f32 step fused + kernel shear against unfused +
+   plain shear with an f64 unfused step as the witness, device times of
+   the steps and profiles of one train step and one augment step.
 
-The last four lines of standard output are the slice's numbers as JSON
-(tiles/s per request, bare forward ms, fused-vs-unfused agreement), the
-card's name and power limit, the ``kernels`` JSON line and the
-``{"ok": true, ...}`` line.
+The last five lines of standard output are the serving slice's numbers as
+JSON, the training phase's numbers as JSON, the card's name and power
+limit, the ``kernels`` JSON line and the ``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -48,7 +65,17 @@ import torch
 import torch.nn.functional as F
 
 from floodplanet_code_tpu_torch.config import Config
-from floodplanet_code_tpu_torch.data import build_dataset, generate_image_slice_object
+from floodplanet_code_tpu_torch.data import (
+    BatchLoader,
+    build_dataset,
+    device_prefetch,
+    generate_image_slice_object,
+)
+from floodplanet_code_tpu_torch.data.augment import (
+    TransformParams,
+    apply_augmentation,
+    draw_augmentation,
+)
 from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference.infer import (
     build_infer_dataset,
@@ -61,11 +88,17 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 )
 from floodplanet_code_tpu_torch.models import build_model
 from floodplanet_code_tpu_torch.ops import LAUNCHES
-from floodplanet_code_tpu_torch.ops import conv_fused
+from floodplanet_code_tpu_torch.ops import conv_fused, rotate
 from floodplanet_code_tpu_torch.tools.import_jax_params import (
     save_weights,
     seeded_flax_variables,
     state_dict_from_flax,
+)
+from floodplanet_code_tpu_torch.train import (
+    create_train_state,
+    make_augment_step,
+    make_eval_step,
+    make_train_step,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -92,6 +125,34 @@ DPROB_TOL = 5e-3  # max |fused - unfused| stitched probability, bf16 model
 SCENES = [(2100, 3300), (2100, 3300), (1500, 2700)]  # ragged edges at 512^2
 TILE = 512
 BATCH = 16
+# f32 rate outside the tensor cores (NVIDIA data sheet, SXM, 700 W): the
+# operations bound of the elementwise shear.
+F32_PEAK = {"H100": 67e12, "H200": 67e12}
+
+# Training phase: the reference's default recipe (config.yaml: flips and
+# rotation at p=0.5 over 0-360 degrees, Adam at lr 1e-4, CE ignoring class 0,
+# bf16) at bench.py's shape (512^2, batch 8), with the Pallas-kernel
+# configuration of the rotation (rotate_impl=shear_pallas). Five scenes,
+# so the 0.8 split leaves at least 15 batches of 8.
+TRAIN_SCENES = SCENES + [(2100, 3300), (2100, 3300)]
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12
+FIXED_STEPS = 10  # steps on one fixed augmented batch: the loss must fall
+BASE = 64  # UNet base width
+F32_BATCH = 2  # the f32 fused-vs-plain step
+# In that step, each gradient tensor's difference: its norm within GRAD_TOL
+# of the tensor's norm, its largest element within GRAD_MAX_TOL of the
+# tensor's largest (see f32_step_check). And the witness: against an f64
+# unfused step, the fused f32 gradients' worst distance is at most
+# WITNESS_RATIO times the unfused f32 gradients' worst distance.
+GRAD_TOL = 1e-2
+GRAD_MAX_TOL = 3e-2
+WITNESS_RATIO = 3.0
+# Shear parity: [B, H = W] at the augmentation shape and the reference's
+# 300^2 crop; residual angles through rotate_flip_batch's a, b.
+SHEAR_SHAPES = [(8, 512), (2, 300)]
+SHEAR_ANGLES = [-44.9, -10.0, 0.0, 17.0, 44.9]
+SHEAR_TOL = {torch.float32: 1e-5, torch.bfloat16: 3.9e-3}  # of max|ref|
 
 
 def log(msg: str) -> None:
@@ -140,6 +201,7 @@ def build_all() -> None:
 
     threads = [
         threading.Thread(target=run, args=("conv_fused", conv_fused.build)),
+        threading.Thread(target=run, args=("rotate", rotate.build)),
         threading.Thread(target=run, args=("tiffio", tiff.load_library)),
     ]
     for t in threads:
@@ -149,11 +211,12 @@ def build_all() -> None:
     for value in results.values():
         if isinstance(value, BaseException):
             raise value
-    path, report = results["conv_fused"]
-    log(f"built {os.path.relpath(path, REPO)}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in ("conv_fused", "rotate"):
+        path, report = results[name]
+        log(f"built {os.path.relpath(path, REPO)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 # -- 3./4. the kernel -------------------------------------------------------
@@ -261,14 +324,14 @@ def kernel_timing(card: str) -> list[dict]:
 # -- 5. the slice ------------------------------------------------------------
 
 
-def write_scenes(root: str, seed: int = 0) -> None:
+def write_scenes(root: str, scenes=None, seed: int = 0) -> None:
     """Synthetic CSDAP-layout PlanetScope scenes (uint16, 4 bands, stored
     HWC) with labels, written by the port's TIFF writer."""
     rng = np.random.default_rng(seed)
     base = os.path.join(root, "CSDAP_complete", "RegionA")
     os.makedirs(os.path.join(base, "labels"), exist_ok=True)
     os.makedirs(os.path.join(base, "PS"), exist_ok=True)
-    for i, (h, w) in enumerate(SCENES):
+    for i, (h, w) in enumerate(SCENES if scenes is None else scenes):
         label = rng.choice([0, 1, 2], size=(h, w), p=[0.1, 0.6, 0.3]).astype(np.uint8)
         img = rng.integers(0, 8000, size=(h, w, 4), dtype=np.uint16)
         img[..., 0] = np.where(label == 2, 7200, 800)
@@ -452,6 +515,441 @@ def run_slice(card: str, device="cuda") -> dict:
                                              "overlap": len(ds_overlap)}}
 
 
+# -- 6./7. the shear kernel --------------------------------------------------
+
+
+def shear_input(gen, b, hw, dtype, device):
+    """[image (4 bands) | label | validity], as augment_batch builds it."""
+    img = torch.rand(b, hw, hw, 4, generator=gen, device=device)
+    lbl = torch.randint(0, 3, (b, hw, hw, 1), generator=gen, device=device).float()
+    return torch.cat([img, lbl, torch.ones_like(lbl)], dim=-1).to(dtype)
+
+
+def shear_shifts(angle_deg: float, b: int, n: int, axis: int, device) -> torch.Tensor:
+    """rotate_flip_batch's per-line shifts for one residual angle: a =
+    -tan(theta/2) for the shears along W (axis 2), b = sin(theta) along H."""
+    theta = torch.full((b,), angle_deg, dtype=torch.float32, device=device) * (math.pi / 180.0)
+    coef = -torch.tan(theta / 2.0) if axis == 2 else torch.sin(theta)
+    return rotate._row_shifts(coef, n)
+
+
+def shear_parity(device="cuda") -> dict:
+    """The shear (the kernel on a card) against its plain version at the
+    augmentation shape and the 300^2 crop: both axes, order 0 and 1,
+    nearest_from=4, f32 and bf16. Image channels within SHEAR_TOL of
+    max|ref|; label and validity channels bit-equal. Returns the worst
+    (relative, absolute) error per dtype."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    for b, hw in SHEAR_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = shear_input(gen, b, hw, dtype, device)
+            for angle in SHEAR_ANGLES:
+                for axis in (2, 1):
+                    shifts = shear_shifts(angle, b, hw, axis, device)
+                    for order in (0, 1):
+                        got = rotate.shear(x, shifts, order, 0.0, 4, axis)
+                        ref = rotate.shear_plain(x, shifts, order, 0.0, 4, axis)
+                        sync(device)
+                        err = (got[..., :4].float() - ref[..., :4].float()).abs().max().item()
+                        scale = ref[..., :4].float().abs().max().item()
+                        rel = err / max(scale, 1e-30)
+                        exact = torch.equal(got[..., 4:], ref[..., 4:])
+                        if not (math.isfinite(err) and rel <= SHEAR_TOL[dtype] and exact):
+                            raise AssertionError(
+                                f"shear kernel disagrees with plain version: [{b},{hw}] "
+                                f"{dtype} angle {angle} axis {axis} order {order}: "
+                                f"rel={rel:.3e} labels equal={exact}")
+                        worst[dtype] = max(worst[dtype], (rel, err))
+    for dtype, (rel, err) in worst.items():
+        log(f"  shear parity {str(dtype)[6:]:8s}: worst max_abs_err={err:.3e} "
+            f"rel={rel:.3e} over {len(SHEAR_SHAPES) * len(SHEAR_ANGLES) * 4} cases; "
+            f"label/validity bit-equal")
+    return worst
+
+
+def shear_timing(card: str) -> dict:
+    """One launch at [8, 512, 512, 6] bf16: the kernel's device time (from
+    a trace), the wrapper's time per call with its quantization and host
+    work, the plain version and F.grid_sample of the same shear as the
+    library yardstick (bilinear on every channel, where the kernel rounds
+    the label and validity channels' fraction; CUDA events), beside the
+    bytes bound."""
+    b, hw = SHEAR_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = shear_input(gen, b, hw, torch.bfloat16, "cuda")
+    shifts = shear_shifts(17.0, b, hw, 2, "cuda")
+    got = rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2)
+    ref = rotate.shear_plain(x, shifts, 1, 0.0, 4, 2)
+    err = (got.float() - ref.float()).abs().max().item()
+    # grid_sample's grid: (x + shift_y, y) in align_corners=True coordinates.
+    ys, xs = torch.meshgrid(torch.arange(hw, device="cuda", dtype=torch.float32),
+                            torch.arange(hw, device="cuda", dtype=torch.float32),
+                            indexing="ij")
+    gx = (xs[None] + shifts[:, :, None]) * (2.0 / (hw - 1)) - 1.0
+    gy = (ys * (2.0 / (hw - 1)) - 1.0).expand(b, hw, hw)
+    grid = torch.stack([gx, gy], dim=-1).to(x.dtype)
+    x_nchw = x.permute(0, 3, 1, 2)
+    iters = 50
+    wrapper_ms = cuda_ms(lambda: rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2), iters)
+    ms = kernel_device_ms(lambda: rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2), "shear_kernel",
+                          iters)
+    plain_ms = cuda_ms(lambda: rotate.shear_plain(x, shifts, 1, 0.0, 4, 2), iters)
+    library_ms = cuda_ms(lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True),
+                         iters)
+    name = torch.cuda.get_device_name(0)
+    nbytes = 2.0 * x.numel() * x.element_size() + 2 * shifts.numel() * 4
+    ops = 6.0 * x.numel()  # two products, a difference and a sum, the tap tests
+    t_bytes = nbytes / peaks(name)[1] * 1e3
+    t_ops = ops / next(v for k, v in F32_PEAK.items() if k in name) * 1e3
+    row = dict(shape=[b, hw, hw, 6], dtype="bfloat16", max_abs_err=err, ms=ms,
+               wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               mbytes=nbytes / 1e6)
+    log(f"  shear [{b},{hw},{hw},6] bf16 per launch: kernel {ms:.4f} ms (trace; "
+        f"{nbytes / ms / 1e6:.0f} GB/s, {row['bound_ms'] / ms:.1%} of the bound), wrapper "
+        f"{wrapper_ms:.4f} ms per call (events), plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{nbytes / 1e6:.1f} MB); vs plain max_abs_err={err:.3e} [{card}]")
+    return row
+
+
+@contextlib.contextmanager
+def plain_shear():
+    """Within the block, ``impl="pallas"`` runs ``shear_plain`` on a card
+    too (the plain augmentation the kernel is held to and timed against)."""
+    saved = rotate.shear
+    rotate.shear = rotate.shear_plain
+    try:
+        yield
+    finally:
+        rotate.shear = saved
+
+
+# -- 8. training -------------------------------------------------------------
+
+
+def _to_device(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def f32_step_check(card: str, eval_batch: dict, device) -> dict:
+    """One f32 train step at batch F32_BATCH from the same weights and the
+    same draws: the fused model with the kernel shear against the unfused
+    (cuDNN) model with the plain shear. TF32 is off (main). An f64 step of
+    the unfused model (f64 activations and BatchNorm; the loss on f32
+    logits, as in every dtype) is the truth both f32 steps are held to:
+    gaps of rounding put both at about one distance from it, a fault in the
+    fused forward or backward puts the fused step farther away."""
+    sd = state_dict_from_flax(seeded_flax_variables(4, 3, BASE, seed=1))
+    tp = TransformParams(rotate_likelihood=1.0, rotate_impl="shear_pallas")
+    batch = {k: v[:F32_BATCH] for k, v in eval_batch.items()}
+    gen = torch.Generator(device=device).manual_seed(6)
+    draws = draw_augmentation(gen, F32_BATCH, tp, device)
+    img_k, tgt_k = apply_augmentation(batch["image"], batch["target"], draws, tp, 0)
+    with plain_shear():
+        img_p, tgt_p = apply_augmentation(batch["image"], batch["target"], draws, tp, 0)
+    aug_err = (img_k - img_p).abs().max().item() / max(img_p.abs().max().item(), 1e-30)
+    if not (aug_err <= SHEAR_TOL[torch.float32] and torch.equal(tgt_k, tgt_p)):
+        raise AssertionError(f"f32 augmentation: kernel vs plain rel={aug_err:.3e}")
+    out = {}
+    for name, impl, dtype, img, tgt in (
+            ("fused", "pallas_fused", torch.float32, img_k, tgt_k),
+            ("xla", "xla", torch.float32, img_p, tgt_p),
+            ("xla again", "xla", torch.float32, img_p, tgt_p),
+            ("f64", "xla", torch.float64, img_p, tgt_p)):
+        model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=BASE,
+                            dtype=dtype, device=device, conv_impl=impl)
+        state = create_train_state(model, sd, 1e-4)
+        step = make_train_step(model, 0, tp, fuse_augmentation=False)
+        # Each DoubleConv's output ReLU mask, to count where the two paths'
+        # f32 sums put a pre-activation on opposite sides of zero.
+        masks = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, o, n=n: masks.__setitem__(n, (o > 0).detach()))
+            for n, m in model.named_modules() if n.endswith("double_conv") or n.endswith("inc")]
+        _, logs = step(state, {"image": img, "target": tgt})
+        for h in hooks:
+            h.remove()
+        out[name] = (logs["loss"].item(),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                     {n: b.detach().clone() for n, b in model.named_buffers()}, masks)
+        del model, state, step
+    (lf, gf, bf, mf), (lx, gx, bx, mx) = out["fused"], out["xla"]
+    l64, g64, _, m64 = out["f64"]
+    loss_rel = _rel(lf, lx)
+
+    def grad_rels(ga, gb):
+        """Per tensor: (max |ga-gb| / max|gb|, ||ga-gb|| / ||gb||)."""
+        return {n: ((ga[n] - gb[n]).abs().max().item() / max(gb[n].abs().max().item(), 1e-30),
+                    ((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)).item())
+                for n in gb}
+
+    rels, noise = grad_rels(gf, gx), grad_rels(out["xla again"][1], gx)
+    to64 = {"fused": grad_rels(gf, g64), "xla": grad_rels(gx, g64)}
+
+    def short(n):
+        return n.split(".")[-2] if n.endswith("double_conv") else "inc"
+
+    flips = {n: int((mf[n] != mx[n]).sum()) for n in mx}
+    flips64 = {k: {short(n): int((m[n] != m64[n]).sum()) for n in m64}
+               for k, m in (("fused", mf), ("xla", mx))}
+    for n in sorted(rels, key=lambda k: rels[k][0], reverse=True)[:4]:
+        log(f"    grad {n}: fused vs xla max {rels[n][0]:.2e}·max|g|, norm "
+            f"{rels[n][1]:.2e}·||g||; xla rerun max {noise[n][0]:.2e}; vs f64: fused "
+            f"{to64['fused'][n][0]:.2e}/{to64['fused'][n][1]:.2e}, xla "
+            f"{to64['xla'][n][0]:.2e}/{to64['xla'][n][1]:.2e} (max/norm)")
+    log(f"    ReLU mask flips per DoubleConv output (fused vs xla): "
+        f"{ {short(n): f for n, f in flips.items()} }; vs f64: fused {flips64['fused']}, "
+        f"xla {flips64['xla']}")
+    grad_max = max(r[0] for r in rels.values())
+    grad_rel = max(r[1] for r in rels.values())
+    # Worst distance to the f64 gradients over the tensors, (max, norm) forms.
+    worst64 = {k: (max(r[0] for r in v.values()), max(r[1] for r in v.values()))
+               for k, v in to64.items()}
+    log(f"  f64 witness: worst gradient distance to the f64 step, fused f32 "
+        f"{worst64['fused'][0]:.2e}·max|g| / {worst64['fused'][1]:.2e}·||g||, unfused f32 "
+        f"{worst64['xla'][0]:.2e}·max|g| / {worst64['xla'][1]:.2e}·||g||; loss f64 "
+        f"{l64:.8f}, fused rel {_rel(lf, l64):.2e}, xla rel {_rel(lx, l64):.2e}")
+    stat_rel = max((bf[n] - bx[n]).abs().max().item() / max(bx[n].abs().max().item(), 1e-30)
+                   for n in bx)
+    log(f"  f32 step fused+kernel shear vs xla+plain shear (batch {F32_BATCH}): loss "
+        f"{lf:.6f} vs {lx:.6f} (rel {loss_rel:.2e}), worst grad {grad_rel:.2e}·||g|| "
+        f"(max-element form {grad_max:.2e}·max|g|), running stats {stat_rel:.2e}·max|ref|, "
+        f"augmentation rel {aug_err:.2e}")
+    # Gradients are held in norm to GRAD_TOL and element-wise to
+    # GRAD_MAX_TOL: where two f32 paths' sums put a pre-activation on
+    # opposite sides of zero (the flips above), that element's ReLU passes
+    # its gradient in one path and not the other, and the deepest level's
+    # BatchNorm averages over only 2048 samples per channel. The f64 step
+    # tells rounding from a fault: the fused gradients must lie no farther
+    # from it than WITNESS_RATIO times the unfused ones.
+    witness_ok = all(worst64["fused"][i] <= WITNESS_RATIO * worst64["xla"][i] for i in (0, 1))
+    if not (loss_rel <= 1e-4 and grad_rel <= GRAD_TOL and grad_max <= GRAD_MAX_TOL
+            and stat_rel <= 1e-4 and witness_ok):
+        raise AssertionError("f32 fused step disagrees with the plain step")
+    return {"loss_rel": loss_rel, "grad_rel_norm": grad_rel, "grad_rel_max": grad_max,
+            "relu_flips": sum(flips.values()), "stats_rel": stat_rel,
+            "augment_rel": aug_err,
+            "f64_witness": {k: {"grad_rel_max": v[0], "grad_rel_norm": v[1],
+                                "relu_flips": sum(flips64[k].values())}
+                            for k, v in worst64.items()}}
+
+
+# Coarse classes of device kernels by name, for the train step's profile.
+KERNEL_CLASSES = [
+    ("fused conv kernel", ("conv_bf16_kernel", "conv_f32_kernel")),
+    ("shear kernel", ("shear_kernel",)),
+    ("cuDNN conv", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad", "dgrad")),
+    ("optimizer", ("adam",)),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy", "fill")),
+]
+
+
+def trace_kernels(fn) -> list[tuple[str, float, int]]:
+    """(kernel name, device ms, launches) of one call of ``fn`` (after a
+    warm-up call) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # Kernel events only: the host-side operator rows carry the same
+    # device time again.
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def kernel_device_ms(fn, kernel: str, iters: int) -> float:
+    """Device time per launch of the kernel whose name holds ``kernel``,
+    from a trace of ``iters`` calls of ``fn``: the kernel alone, without
+    the host work and other launches of its wrapper."""
+    hits = [(t, n) for key, t, n in trace_kernels(lambda: [fn() for _ in range(iters)])
+            if kernel in key]
+    launches = sum(n for _, n in hits)
+    if launches != iters:
+        raise AssertionError(f"the trace shows {launches} launches of {kernel}, want {iters}")
+    return sum(t for t, _ in hits) / launches
+
+
+def profile_step(card: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time per class
+    of kernel (KERNEL_CLASSES, by name) and the largest kernels."""
+    rows = trace_kernels(fn)
+    total = sum(r[1] for r in rows)
+    classes: dict = {}
+    for key, t, count in rows:
+        low = key.lower()
+        name = next((c for c, subs in KERNEL_CLASSES if any(x in low for x in subs)), "other")
+        ms, n = classes.get(name, (0.0, 0))
+        classes[name] = (ms + t, n + count)
+    if total == 0:
+        log(f"  profile: the profiler saw no device time [{card}]")
+        return {}
+    log(f"  profile of one call: {total:.2f} ms of device time in "
+        f"{sum(r[2] for r in rows)} kernel launches [{card}]")
+    for name, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {name:18s} {ms:8.2f} ms {ms / total:6.1%} ({n} launches)")
+    for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"    {t:8.3f} ms x{count:<4d} {key[:110]}")
+    return {"device_ms": total, "classes_ms": {k: v[0] for k, v in classes.items()}}
+
+
+def _pack_keys(model) -> list:
+    return [m._fused[0] for m in model.modules() if hasattr(m, "_fused")]
+
+
+def run_training(card: str, device="cuda") -> dict:
+    """Phase 8: augmentation + train steps of the full-width EF-UNet.
+    ``device="cpu"`` rehearses the control flow at a small size
+    (tests/test_torch_chip_smoke.py): no kernel launches and no device
+    timing then."""
+    on_card = torch.device(device).type == "cuda"
+    data_root = os.path.join(WORK, "train_data")
+    shutil.rmtree(WORK, ignore_errors=True)
+    with Phase("training: write scenes"):
+        write_scenes(data_root, TRAIN_SCENES, seed=1)
+    ds = build_dataset(
+        "floodplanet", "train", generate_image_slice_object(TILE, TILE, stride=TILE),
+        sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0, seed_num=0,
+        train_split_pct=0.8,
+    )
+    loader = BatchLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, n_workers=8)
+    if len(loader) < TRAIN_STEPS + 1:
+        raise AssertionError(f"{len(loader)} train batches, want {TRAIN_STEPS + 1}")
+    eval_batch = _to_device(next(iter(BatchLoader(ds, TRAIN_BATCH))), device)
+    log(f"  {len(ds)} train tiles, {len(loader)} batches of {TRAIN_BATCH}")
+
+    model = build_model("ef_model", ds.n_channels, ds.n_classes, dtype=torch.bfloat16,
+                        device=device, conv_impl="pallas_fused", base_feat_channels=BASE)
+    state = create_train_state(
+        model, state_dict_from_flax(seeded_flax_variables(4, 3, BASE, seed=0)), 1e-4, "adam")
+    tp = TransformParams(rotate_impl="shear_pallas", dtype="bfloat16")
+    augment_step = make_augment_step(tp, 0)
+    train_step = make_train_step(model, 0, tp, fuse_augmentation=False)
+    eval_step = make_eval_step(model, 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    sync(device)
+    LAUNCHES.clear()  # the training path starts here
+    eval_before = eval_step(state, eval_batch)  # packs the pre-training weights
+    keys_before = _pack_keys(model)
+    losses = []
+    with Phase("training: steps through the loader"):
+        t0 = time.perf_counter()
+        for n, batch in enumerate(device_prefetch(iter(loader), device)):
+            if n == TRAIN_STEPS:
+                break
+            fixed = augment_step(gen, batch)
+            state, logs = train_step(state, fixed)
+            losses.append(logs["loss"])
+        sync(device)
+        loop_s = time.perf_counter() - t0
+    fixed_losses = []
+    with Phase(f"training: {FIXED_STEPS} steps on one augmented batch"):
+        for _ in range(FIXED_STEPS):
+            state, logs = train_step(state, fixed)
+            fixed_losses.append(logs["loss"])
+        sync(device)
+    eval_after = eval_step(state, eval_batch)
+    keys_after = _pack_keys(model)
+    # An optimizer step alone, with no forward (the last step's gradients):
+    # the parameters move in place and the next eval must re-pack.
+    state.optimizer.step()
+    eval_after = eval_step(state, eval_batch)
+    sync(device)
+    launches = {k: LAUNCHES[k] for k in (conv_fused.KERNEL, rotate.KERNEL)}  # ends here
+    keys_opt = _pack_keys(model)
+
+    losses = [v.item() for v in losses]
+    fixed_losses = [v.item() for v in fixed_losses]
+    log(f"  losses through the loader: {[round(v, 4) for v in losses]}")
+    log(f"  losses on one batch: {[round(v, 4) for v in fixed_losses]}")
+    if not all(math.isfinite(v) for v in losses + fixed_losses):
+        raise AssertionError("non-finite training loss")
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"{FIXED_STEPS} steps on one batch did not lower the loss")
+    forwards = TRAIN_STEPS + FIXED_STEPS + 3  # train forwards + fused eval forwards
+    expected = {conv_fused.KERNEL: 9 * forwards, rotate.KERNEL: 3 * TRAIN_STEPS}
+    if not on_card:
+        expected = {k: 0 for k in expected}  # a CPU tensor runs the plain versions
+    log(f"  launches: {launches} for {forwards} forwards and {TRAIN_STEPS} augment steps")
+    if launches != expected:
+        raise AssertionError(f"expected launches {expected}, got {launches}")
+    # Train steps move the parameters and the running statistics; the
+    # optimizer step alone moves the parameters only.
+    if on_card and any(a == b for a, b in zip(keys_before, keys_after)):
+        raise AssertionError("the eval pack cache kept operands packed before the updates")
+    if on_card and any(a == b for a, b in zip(keys_after, keys_opt)):
+        raise AssertionError("the eval pack cache kept operands packed before an optimizer step")
+
+    # The fused model after the updates against the unfused (cuDNN) model
+    # on the same weights.
+    model_xla = build_model("ef_model", ds.n_channels, ds.n_classes, dtype=torch.bfloat16,
+                            device=device, conv_impl="xla", base_feat_channels=BASE)
+    model_xla.load_state_dict(model.state_dict(), strict=True)
+    eval_xla = make_eval_step(model_xla, 0)(state, eval_batch)
+    cf, cx = eval_after["confusion"], eval_xla["confusion"]
+    differ = ((cf - cx).abs().sum() / 2 / cx.sum()).item()
+    loss_rel = _rel(eval_after["loss"].item(), eval_xla["loss"].item())
+    log(f"  eval after the updates: fused loss {eval_after['loss'].item():.5f}, xla "
+        f"{eval_xla['loss'].item():.5f} (rel {loss_rel:.2e}); confusion cells differ by "
+        f"{differ:.2e} of the pixels; before the updates the fused loss was "
+        f"{eval_before['loss'].item():.5f}")
+    if not (loss_rel <= 1e-2 and differ <= 1e-3):
+        raise AssertionError("fused and unfused eval disagree after the updates")
+
+    result = {"launches": launches, "losses": losses, "fixed_losses": fixed_losses,
+              "eval_loss_rel": loss_rel, "eval_confusion_differ": differ,
+              "train_tiles_per_s": TRAIN_STEPS * TRAIN_BATCH / loop_s}
+    log(f"  train tiles/s through the loader (host clock, loading, augmentation and "
+        f"step included): {result['train_tiles_per_s']:.1f} [{card}]")
+    result["f32_step"] = f32_step_check(card, eval_batch, device)
+
+    if on_card:
+        # Device times (CUDA events) at batch TRAIN_BATCH: the train step
+        # without augmentation, the augment step with the kernel and with
+        # the plain shear, and the eval forward, for both models.
+        state_xla = create_train_state(model_xla, None, 1e-4, "adam")
+        step_xla = make_train_step(model_xla, 0, tp, fuse_augmentation=False)
+        ms = {
+            "train_step_fused": cuda_ms(lambda: train_step(state, fixed), 5),
+            "train_step_xla": cuda_ms(lambda: step_xla(state_xla, fixed), 5),
+            "augment_kernel": cuda_ms(lambda: augment_step(gen, eval_batch), 10),
+        }
+        with plain_shear():
+            ms["augment_plain"] = cuda_ms(lambda: augment_step(gen, eval_batch), 10)
+        image = fixed["image"].permute(0, 3, 1, 2)
+        for name, m in (("eval_forward_fused", model), ("eval_forward_xla", model_xla)):
+            m.eval()
+            with torch.inference_mode():
+                ms[name] = cuda_ms(lambda: m({"image": image}), 5)
+        for name, value in ms.items():
+            log(f"  {name}: {value:.3f} ms per batch of {TRAIN_BATCH} [{card}]")
+        result["ms"] = ms
+        # Estimated: the loop's steps at these device times over its wall time.
+        busy = TRAIN_STEPS * (ms["train_step_fused"] + ms["augment_kernel"]) / 1e3 / loop_s
+        result["device_busy_share"] = busy
+        log(f"  the loop through the loader kept the device busy ~{busy:.1%} of its "
+            f"wall time [{card}]")
+        model.train()
+        result["profile_train_step_fused"] = profile_step(card, lambda: train_step(state, fixed))
+        result["profile_augment_step"] = profile_step(card, lambda: augment_step(gen, eval_batch))
+    shutil.rmtree(WORK, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -473,6 +971,12 @@ def main() -> int:
         rows = kernel_timing(card)
     with Phase("slice"):
         result = run_slice(card)
+    with Phase("shear parity"):
+        shear_worst = shear_parity()
+    with Phase("shear timing"):
+        shear_row = shear_timing(card)
+    with Phase("training"):
+        train = run_training(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -484,7 +988,11 @@ def main() -> int:
         "route": "cuda",
         "source": "floodplanet_code_tpu_torch/ops/csrc/conv_fused.cu",
         "replaces": "floodplanet_code_tpu/ops/conv_fused.py:95",
-        "launches": result["launches"],
+        # Both main paths: serving (9 per forward) and training (9 per
+        # train-step forward and per fused eval forward).
+        "launches": result["launches"] + train["launches"][conv_fused.KERNEL],
+        "launches_by_path": {"serving": result["launches"],
+                             "training": train["launches"][conv_fused.KERNEL]},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -497,8 +1005,30 @@ def main() -> int:
         "bound_by": "operations" if t_ops >= total["bound_ms"] / 2 else "bytes",
         "library_ms": total["library_ms"],
         "levels": rows,
+    }, {
+        "name": rotate.KERNEL,
+        "route": "cuda",
+        "source": "floodplanet_code_tpu_torch/ops/csrc/rotate.cu",
+        "replaces": "floodplanet_code_tpu/ops/rotate.py:193",
+        "launches": train["launches"][rotate.KERNEL],  # 3 per augment step
+        # Parity over both shapes, axes, orders and types, and the timed launch.
+        "max_abs_err": max(shear_worst[torch.bfloat16][1], shear_worst[torch.float32][1],
+                           shear_row["max_abs_err"]),
+        "max_rel_err_f32": shear_worst[torch.float32][0],
+        "max_rel_err_bf16": shear_worst[torch.bfloat16][0],
+        # Times are per launch at [8, 512, 512, 6] bf16: ms is the kernel's
+        # device time from a trace, wrapper_ms the wrapper's time per call
+        # (CUDA events); library_ms is one F.grid_sample of the same shear
+        # (bilinear on every channel).
+        "ms": shear_row["ms"],
+        "wrapper_ms": shear_row["wrapper_ms"],
+        "plain_ms": shear_row["plain_ms"],
+        "bound_ms": shear_row["bound_ms"],
+        "bound_by": shear_row["bound_by"],
+        "library_ms": shear_row["library_ms"],
     }]}
     log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -6,9 +6,14 @@ channels (bilinear variant), 4 bilinear-upsample ups with pad-to-match skip
 concatenation, 1x1 output conv.
 
 Port choices:
-- Eval mode only. BatchNorm uses its running statistics, folded exactly as
-  the JAX package folds them (``BatchNormReLU.fold``); train-mode BN is not
-  ported yet and raises.
+- Eval mode: BatchNorm uses its running statistics, folded exactly as the
+  JAX package folds them (``BatchNormReLU.fold``). Train mode: batch
+  statistics through ``ops/batchnorm.py::bn_relu_train`` (the fused pair's
+  BN_0: differentiable statistics folded into the kernel's (a, b), the JAX
+  ``return_affine`` path), and the running statistics move as
+  ``0.9*old + 0.1*batch`` with the biased batch variance. Not
+  ``nn.BatchNorm2d``: its momentum runs the other way and it updates with
+  the unbiased variance.
 - Params are f32; every module computes in the model's compute dtype (bf16
   by default): inputs and weights are cast at each conv, the logits are
   cast back to f32, as the flax ``dtype``/``param_dtype`` split does.
@@ -26,10 +31,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
+from floodplanet_code_tpu_torch.ops.batchnorm import batch_stats, bn_relu_train
 from floodplanet_code_tpu_torch.ops.conv_fused import pack, relu_affine_conv3x3
 
 CONV_IMPLS = ("xla", "pallas_fused")
+# Running statistics move as MOMENTUM*old + (1-MOMENTUM)*batch: the value
+# every BatchNorm of the JAX package uses (models/unet.py:41,87-88 there).
+_MOMENTUM = 0.9
+
+# Optimizer steps taken in this process, a part of the eval pack cache's
+# key: a fused optimizer (Adam(fused=True)) updates parameters in place
+# without moving their ``_version``.
+_OPTIMIZER_STEPS = [0]
+
+
+def _count_optimizer_step(optimizer, args, kwargs) -> None:
+    _OPTIMIZER_STEPS[0] += 1
+
+
+register_optimizer_step_post_hook(_count_optimizer_step)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -39,10 +61,11 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 class BatchNormReLU(nn.Module):
-    """Eval-mode BatchNorm + ReLU (the JAX package's FusedBatchNormReLU).
+    """BatchNorm + ReLU (the JAX package's FusedBatchNormReLU).
 
     Parameters ``scale``/``bias`` and buffers ``mean``/``var`` carry the flax
-    names, so the weight bridge (tools/import_jax_params.py) maps 1:1.
+    names, so the weight bridge (tools/import_jax_params.py) maps 1:1. In
+    train mode every forward moves the running statistics in place.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
@@ -55,16 +78,40 @@ class BatchNormReLU(nn.Module):
 
     def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The running statistics as an f32 affine (a, b): BN(x) = x*a + b
-        (models/unet.py:77-83 of the JAX package, same expression order)."""
+        (models/unet.py:77-83 of the JAX package, same expression order).
+        Eval mode only: train mode normalizes with batch statistics."""
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP.md Queue 1, "
-                "'Train step'); call model.eval()"
+            raise RuntimeError(
+                "fold() is the eval-mode affine of the running statistics; in "
+                "train mode use forward() or batch_affine()"
             )
         inv = torch.rsqrt(self.var + self.epsilon)
         return inv * self.scale, self.bias - self.mean * inv * self.scale
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        # models/unet.py:71-76,87-88 of the JAX package, same expression.
+        with torch.no_grad():
+            m = _MOMENTUM
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+
+    def batch_affine(self, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Train mode, BN not applied: (a, b) in f32 from y's batch
+        statistics, for a consumer that applies them itself (the fused
+        kernel). The statistics are plain differentiable reductions, so the
+        gradient reaches y through them as well (models/unet.py:60-78 of
+        the JAX package); the running update is detached."""
+        mean, m2 = batch_stats(y)
+        var = torch.clamp_min(m2 - mean * mean, 0.0)
+        self._update_running(mean.detach(), var.detach())
+        inv = torch.rsqrt(var + self.epsilon)
+        return inv * self.scale, self.bias - mean * inv * self.scale
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            z, mean, var = bn_relu_train(x, self.scale, self.bias, self.epsilon)
+            self._update_running(mean, var)
+            return z
         a, b = self.fold()
         dt = x.dtype
         # The fold is cast to the compute dtype before the apply, and the
@@ -93,27 +140,41 @@ class DoubleConv(nn.Module):
         self.bn1 = BatchNormReLU(out_channels)
         self._fused = (None, None)  # (key, (a, b, packed)), see _fused_operands
 
-    def _fused_operands(self, dtype: torch.dtype):
-        """(a, b, packed) for the fused op. On a card under inference mode
-        they are kept until a parameter or running statistic changes, so a
-        serving model folds and lays out its weights once, not per forward."""
+    def _pack_key(self, y: torch.Tensor) -> tuple:
+        """What the packed operands depend on: y's dtype, the tensors'
+        storage and ``_version`` (moved by load_state_dict, a train-mode
+        forward and most in-place updates) and the count of optimizer steps
+        (a fused optimizer leaves ``_version`` as it was). Writes through
+        ``.data`` are not seen."""
+        bn = self.bn0
+        tensors = (bn.scale, bn.bias, bn.mean, bn.var, self.conv1.weight)
+        return (y.dtype, _OPTIMIZER_STEPS[0],
+                *((t.data_ptr(), t._version) for t in tensors))
+
+    def _fused_operands(self, y: torch.Tensor):
+        """(a, b, packed) for the fused op on y. Train mode: BN_0's batch
+        statistics, packed per call. On a card under inference mode they are
+        kept until a parameter or running statistic changes (``_pack_key``):
+        a serving model folds and lays out its weights once, not per
+        forward."""
+        if self.bn0.training:
+            a, b = self.bn0.batch_affine(y)
+            return a, b, None
         w = self.conv1.weight
-        if self.bn0.training or not (w.is_cuda and torch.is_inference_mode_enabled()):
+        if not (w.is_cuda and torch.is_inference_mode_enabled()):
             a, b = self.bn0.fold()
             return a, b, None  # the op packs per call on a card
-        bn = self.bn0
-        tensors = (bn.scale, bn.bias, bn.mean, bn.var, w)
-        key = (dtype, *((t.data_ptr(), t._version) for t in tensors))
+        key = self._pack_key(y)
         if self._fused[0] != key:
-            a, b = bn.fold()
-            self._fused = (key, (a, b, pack(a, b, w, dtype)))
+            a, b = self.bn0.fold()
+            self._fused = (key, (a, b, pack(a, b, w, y.dtype)))
         return self._fused[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _conv(x, self.conv0)
         if self.conv_impl == "pallas_fused":
             # BN_0's apply + ReLU run inside Conv_1's kernel.
-            a, b, packed = self._fused_operands(y.dtype)
+            a, b, packed = self._fused_operands(y)
             y = relu_affine_conv3x3(y, a, b, self.conv1.weight, packed)
         else:
             y = _conv(self.bn0(y), self.conv1)

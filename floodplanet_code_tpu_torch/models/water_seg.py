@@ -9,7 +9,9 @@
 ``LateFusionModel`` is not ported yet (ROADMAP.md Queue 1).
 
 Batches are dicts of NCHW tensors: ``image`` plus optional aux features in
-``AUX_FEATURE_KEYS`` order. The models are eval-only for now.
+``AUX_FEATURE_KEYS`` order. ``build_model`` returns a model in eval mode;
+``.train()`` switches it to batch-statistics BatchNorm for training
+(``train/fit.py::make_train_step``).
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ SAME padding applies to ``z``: taps outside the image add 0, not relu(b).
   y's dtype: the CPU path, and the oracle the kernel is held to.
 - ``pack``: the kernel's padded, tap-major layout of (a, b, w).
 - ``build``: compiles the kernel with ``nvcc`` into ``_build/`` (once per
-  source version) and returns the library path.
+  source version, ``ops/cuda_build.py``) and returns the library path.
 
 Tensors are PyTorch's NCHW with ``channels_last`` memory, so the kernel
 reads NHWC. ``w`` is a conv weight in PyTorch's OIHW layout.
@@ -24,103 +24,39 @@ reads NHWC. ``w`` is a conv weight in PyTorch's OIHW layout.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 import torch.nn.functional as F
 
-from floodplanet_code_tpu_torch.ops import LAUNCHES
+from floodplanet_code_tpu_torch.ops import LAUNCHES, cuda_build
 
 KERNEL = "relu_affine_conv3x3"
-_SRC = os.path.join(os.path.dirname(__file__), "csrc", "conv_fused.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
+_NAME = "conv_fused"  # csrc/conv_fused.cu; its C functions carry the prefix fp_
 # KC and BN of conv_fused.cu: the kernel walks input channels KC at a time
 # and computes BN output channels per block; the wrapper zero-pads a, b and
 # w to these multiples.
 _K_CHUNK = 32
 _N_BLOCK = 64
 
-_lib_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_prepared: set[int] = set()  # devices on which fp_prepare has run
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                           f"{_SRC}")
-    return path
-
 
 def build() -> tuple[str, str]:
-    """Compile ``conv_fused.cu`` for ``sm_90a`` unless this source version
-    is already built. Returns (library path, compiler report); the report
-    (``ptxas -v``: registers, shared memory, spills) is empty when the
-    library was already there."""
-    with open(_SRC, "rb") as handle:
-        digest = hashlib.sha1(handle.read()).hexdigest()[:12]
-    lib_path = os.path.join(_BUILD_DIR, f"libconv_fused_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(),
-        "-gencode=arch=compute_90a,code=sm_90a",
-        "-std=c++17",
-        "-O3",
-        "-Xptxas=-v",
-        "-shared",
-        "-Xcompiler",
-        "-fPIC",
-        "-o",
-        tmp,
-        _SRC,
-    ]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {_SRC}:\n{result.stdout}\n{result.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a half file
-    return lib_path, result.stdout + result.stderr
+    """Compile ``conv_fused.cu`` (``ops/cuda_build.py``); returns (library
+    path, ``ptxas -v`` report, empty when it was built already)."""
+    return cuda_build.build(_NAME)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.fp_prepare.restype = ctypes.c_int
+    lib.fp_relu_affine_conv3x3.restype = ctypes.c_int
+    lib.fp_relu_affine_conv3x3.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int
+    ] * 9 + [ctypes.c_void_p]
 
 
 def _load(device: torch.device) -> ctypes.CDLL:
-    """The kernel library, built and loaded once, prepared for ``device``."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()[0])
-            lib.fp_prepare.restype = ctypes.c_int
-            lib.fp_relu_affine_conv3x3.restype = ctypes.c_int
-            lib.fp_relu_affine_conv3x3.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_int
-            ] * 9 + [ctypes.c_void_p]
-            lib.fp_cuda_error_string.restype = ctypes.c_char_p
-            lib.fp_cuda_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        if device.index not in _prepared:
-            with torch.cuda.device(device):
-                err = _lib.fp_prepare()
-            if err != 0:
-                raise RuntimeError(
-                    f"{KERNEL}: preparing {device} failed: "
-                    f"{_lib.fp_cuda_error_string(err).decode()}"
-                )
-            _prepared.add(device.index)
-        return _lib
+    """The kernel library, built and loaded once, prepared for ``device``
+    (``fp_prepare`` sets the shared-memory attribute there)."""
+    return cuda_build.load(_NAME, "fp", _declare, device, prepare=True)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -205,7 +141,7 @@ def relu_affine_conv3x3_cuda(y, a, b, w, packed=None):
         )
     if err != 0:
         raise RuntimeError(
-            f"{KERNEL} launch failed: {lib.fp_cuda_error_string(err).decode()} "
+            f"{KERNEL} launch failed: {cuda_build.error_string(lib, 'fp', err)} "
             f"(y {tuple(y.shape)} {dt}, C2={c2})"
         )
     LAUNCHES[KERNEL] += 1

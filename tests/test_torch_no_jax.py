@@ -18,7 +18,8 @@ _CHECK = r"""
 import importlib, json, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
-from chip_smoke import build_all, kernel_parity, kernel_timing, run_slice, main
+from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
+                        shear_timing, run_training, main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -44,6 +45,14 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.inference.infer",
         "floodplanet_code_tpu_torch.tools.import_jax_params",
         "floodplanet_code_tpu_torch.geo.tiff",
+        "floodplanet_code_tpu_torch.ops.cuda_build",
+        "floodplanet_code_tpu_torch.ops.batchnorm",
+        "floodplanet_code_tpu_torch.ops.losses",
+        "floodplanet_code_tpu_torch.ops.metrics",
+        "floodplanet_code_tpu_torch.ops.rotate",
+        "floodplanet_code_tpu_torch.data.augment",
+        "floodplanet_code_tpu_torch.train.state",
+        "floodplanet_code_tpu_torch.train.fit",
     ):
         assert expected in names
 

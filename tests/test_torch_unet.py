@@ -125,11 +125,15 @@ def test_seeded_tree_has_flax_structure():
 
 
 def test_train_mode_bn_raises():
+    # Train mode runs (batch statistics); only the running-statistics fold,
+    # which is eval-only, raises there.
     model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=8,
-                        device="cpu")
+                        device="cpu", conv_impl="pallas_fused")
     model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model({"image": torch.zeros(1, 4, 16, 16)})
+    out = model({"image": torch.randn(2, 4, 16, 16)})
+    assert out.shape == (2, 3, 16, 16) and torch.isfinite(out).all()
+    with pytest.raises(RuntimeError, match="eval-mode"):
+        model.unet.encoder.inc.bn0.fold()
 
 
 def test_build_model_needs_a_card_unless_cpu(monkeypatch):
@@ -154,3 +158,30 @@ def test_bf16_fold_rounds_like_the_jax_path(rng):
     b = (bn.bias - bn.mean * inv * bn.scale).bfloat16().view(1, -1, 1, 1)
     want = F.relu(x.bfloat16() * a + b)
     assert torch.equal(bn(x.bfloat16()), want)
+
+
+@pytest.mark.parametrize("update", ["adam_fused", "adam_foreach", "sgd", "train_forward",
+                                    "load_state_dict"])
+def test_pack_key_moves_on_every_update(update):
+    # The eval pack cache (used on a card under inference mode) re-packs
+    # when its key moves. Adam(fused=True) updates in place without moving
+    # the parameters' _version; the optimizer-step count catches it.
+    from floodplanet_code_tpu_torch.models.unet import DoubleConv
+
+    dc = DoubleConv(3, 4, conv_impl="pallas_fused")
+    x = torch.randn(2, 3, 8, 8)
+    dc(x).sum().backward()  # gradients for the optimizers
+    dc.eval()
+    y = torch.randn(2, 4, 8, 8)
+    key = dc._pack_key(y)
+    assert dc._pack_key(y) == key
+    if update == "train_forward":
+        dc.train()(x)
+    elif update == "load_state_dict":
+        dc.load_state_dict(dc.state_dict())
+    else:
+        opt = {"adam_fused": lambda p: torch.optim.Adam(p, fused=True),
+               "adam_foreach": lambda p: torch.optim.Adam(p, foreach=True),
+               "sgd": lambda p: torch.optim.SGD(p, lr=0.1)}[update](dc.parameters())
+        opt.step()
+    assert dc._pack_key(y) != key
