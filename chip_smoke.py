@@ -14,10 +14,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    parallel;
 3. kernel parity: the fused conv against its plain PyTorch version on the
    card at the nine DoubleConv shapes of the full-width UNet (batch 2), an
-   odd shape, channel tails and a b > 0 case, in f32 and bf16;
+   odd shape, channel tails, b > 0 cases and the edges of the bf16
+   kernel's tiles, in f32 and bf16; ptxas must report no spills in the bf16
+   kernel;
 4. kernel timing: kernel, plain chain and one cuDNN conv of the
-   materialized z, per level at batch 16 (CUDA events), beside the bound;
-   the kernel's batch-16 output is held to the plain chain's;
+   materialized z, per level at batch 16 (CUDA events), beside the bound
+   (its fraction and TFLOP/s); the kernel's batch-16 output is held to the
+   plain chain's, and the kernel must beat the plain chain at every level;
 5. the slice (serving): synthetic PlanetScope scenes written with the
    port's TIFF writer, the full-width early-fusion UNet (base 64, 4 bands,
    3 classes, bf16, conv_impl=pallas_fused) with seeded flax-layout weights
@@ -26,12 +29,16 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``sliding_window_predict`` pass; masks, probabilities, kernel launches
    (9 per forward) and the agreement with the unfused cuDNN path are
    checked;
-6. shear parity: the row-shear kernel against its plain version at
-   [8, 512, 512, 6] and [2, 300, 300, 6], both axes, order 0 and 1, f32 and
-   bf16, five residual angles; label and validity channels bit-equal;
-7. shear timing: the kernel's device time (a trace), the wrapper's time
-   per call, the plain version and one ``F.grid_sample`` per launch at
-   [8, 512, 512, 6] bf16, beside the bytes bound;
+6. shear parity: the row-shear kernel against its plain version, bit for
+   bit, at [8, 512, 512, 6] and [2, 300, 300, 6] over five residual angles
+   and on the quantization's edges (integer shifts, .5 ties, clipped
+   shifts) at odd shapes and C in {3, 5, 6}; both axes, order 0 and 1, f32
+   and bf16;
+7. shear timing: the kernel's device time (a trace, which must show one
+   launch per wrapper call and nothing else), the wrapper's time per call,
+   the shear along H, the plain version and one ``F.grid_sample`` at
+   [8, 512, 512, 6] bf16, beside the bytes bound; the kernel must not be
+   slower than ``grid_sample``;
 8. training: augmentation (flips + rotation, rotate_impl=shear_pallas,
    bf16) and train steps (Adam, lr 1e-4) of the full-width model at batch 8
    on 512^2 crops through the loader, then steps on one fixed augmented
@@ -153,6 +160,9 @@ WITNESS_RATIO = 3.0
 SHEAR_SHAPES = [(8, 512), (2, 300)]
 SHEAR_ANGLES = [-44.9, -10.0, 0.0, 17.0, 44.9]
 SHEAR_TOL = {torch.float32: 1e-5, torch.bfloat16: 3.9e-3}  # of max|ref|
+# Shear parity at the quantization's edges: [B, H, W, C] with W*C not a
+# multiple of the vector width, and C off the kernel's C = 6 path.
+SHEAR_EDGE_SHAPES = [(1, 37, 53, 6), (2, 40, 40, 3), (2, 24, 40, 5)]
 
 
 def log(msg: str) -> None:
@@ -214,9 +224,29 @@ def build_all() -> None:
     for name in ("conv_fused", "rotate"):
         path, report = results[name]
         log(f"built {os.path.relpath(path, REPO)}")
+        if not report:
+            log("  (already built: no ptxas report)")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "C75", "Function properties")):
                 log(f"  ptxas: {line.strip()}")
+        check_no_spills(report)
+
+
+def check_no_spills(report: str) -> None:
+    """Raise if ptxas reports spills, or serialized wgmmas, in a bf16 conv
+    kernel (``Function properties for <name>`` is followed by its
+    ``bytes spill stores`` line)."""
+    kernel = None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            kernel = line.split("for", 1)[1].strip()
+        elif "spill stores" in line and kernel and "conv_bf16" in kernel:
+            stores, loads = (int(line.split(" bytes spill stores")[0].split(",")[-1]),
+                             int(line.split(" bytes spill loads")[0].split(",")[-1]))
+            if stores or loads:
+                raise AssertionError(f"ptxas spills in {kernel}: {line.strip()}")
+        if "C7512" in line or "C7515" in line or "C7508" in line:
+            raise AssertionError(f"ptxas: {line.strip()}")
 
 
 # -- 3./4. the kernel -------------------------------------------------------
@@ -244,6 +274,16 @@ def kernel_parity() -> dict:
         ("tails 9x21 40->72", 1, 9, 21, 40, 72, False),
         ("b>0 down4", 2, 32, 32, 512, 512, True),
         ("b>0 inc", 2, 64, 64, 64, 64, True),
+        # Edges of the bf16 kernel's tiles (tile_config: 32x16, 16x16 or
+        # 8x16 pixels by 64, 128 or 256 channels, K chunks of 64): H and W
+        # off the tile, C2 off the N tile, C1 off the K chunk, an image
+        # smaller than a tile, and C1 % 8 != 0 (the scalar halo load).
+        ("hw tail 40x40 64->64", 2, 40, 40, 64, 64, True),
+        ("c2 tail 16x24 128->96", 2, 16, 24, 128, 96, False),
+        ("c2 tail 19x23 64->200", 1, 19, 23, 64, 200, True),
+        ("c1 tail 16x20 96->128", 2, 16, 20, 96, 128, True),
+        ("tiny 5x3 96->40", 1, 5, 3, 96, 40, True),
+        ("scalar 10x9 12->300", 1, 10, 9, 12, 300, True),
     ]
     worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
     for name, bsz, h, w, c1, c2, bpos in cases:
@@ -310,14 +350,20 @@ def kernel_timing(card: str) -> list[dict]:
                    mbytes=nbytes / 1e6, max_abs_err=err, rel_err=rel, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tile=list(conv_fused.tile_config(c2)))
+        row["bound_frac"] = row["bound_ms"] / ms
+        row["tflops"] = flop / ms / 1e9
         rows.append(row)
-        log(f"  time {name:6s} {h}^2 {c1}->{c2} b{BATCH}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, cuDNN conv {library_ms:.3f} ms, bound "
-            f"{row['bound_ms']:.3f} ms ({row['bound_by']}), "
-            f"{flop / ms / 1e9:.1f} TFLOP/s; vs plain max_abs_err={err:.3e} "
-            f"rel={rel:.3e} [{card}]")
+        log(f"  time {name:6s} {h}^2 {c1}->{c2} b{BATCH}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, cuDNN conv {library_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_frac']:.1%} of it), "
+            f"{row['tflops']:.1f} TFLOP/s, tile {row['tile']}; vs plain "
+            f"max_abs_err={err:.3e} rel={rel:.3e} [{card}]")
         del y, z, wd, packed
+    slower = [r["level"] for r in rows if not r["ms"] < r["plain_ms"]]
+    if slower:
+        raise AssertionError(f"the kernel is not faster than the plain chain at {slower}")
     return rows
 
 
@@ -533,38 +579,65 @@ def shear_shifts(angle_deg: float, b: int, n: int, axis: int, device) -> torch.T
     return rotate._row_shifts(coef, n)
 
 
+def edge_shifts(b: int, n: int, device) -> dict:
+    """Per-line shifts [b, n] at the quantization's edges, for n lines: exact
+    integers; fractions whose fq = frac * 65536 lands on a .5 tie (src =
+    shift + pad stays exact in f32 while |src| < 128); and shifts beyond
+    +-(pad-1), where the clip binds."""
+    pad = rotate._pad(n)
+    line = torch.arange(n, dtype=torch.float32, device=device)
+    row = torch.arange(b, dtype=torch.float32, device=device)[:, None]
+    ints = torch.remainder(line + 3 * row, 11) - 5
+    ties = ints + (2 * torch.remainder(line * 7 + row, 64) + 1) / 131072.0
+    clip = torch.where(torch.remainder(line + row, 2) == 0, 1.0, -1.0) * (pad + 3.25 + line / n)
+    return {"integers": ints.expand(b, n).contiguous(), "ties": ties.contiguous(),
+            "clip": clip.contiguous()}
+
+
 def shear_parity(device="cuda") -> dict:
-    """The shear (the kernel on a card) against its plain version at the
-    augmentation shape and the 300^2 crop: both axes, order 0 and 1,
-    nearest_from=4, f32 and bf16. Image channels within SHEAR_TOL of
-    max|ref|; label and validity channels bit-equal. Returns the worst
-    (relative, absolute) error per dtype."""
+    """The shear (the kernel on a card) against its plain version, bit for
+    bit: at the augmentation shape and the 300^2 crop over five residual
+    angles, and on the quantization edges (``edge_shifts``) at shapes whose
+    W*C is not a multiple of the vector width and with C in {3, 5} (the
+    kernel's any-C path); both axes, order 0 and 1, f32 and bf16,
+    nearest_from = C - 2. Returns the worst (relative, absolute) error per
+    dtype, which must be 0."""
     gen = torch.Generator(device=device).manual_seed(4)
     worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    cases = 0
+
+    def check(x, shifts, axis, what):
+        nonlocal cases
+        nf = x.shape[-1] - 2
+        for order in (0, 1):
+            got = rotate.shear(x, shifts, order, 0.0, nf, axis)
+            ref = rotate.shear_plain(x, shifts, order, 0.0, nf, axis)
+            sync(device)
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"shear kernel differs from its plain version: {what} {tuple(x.shape)} "
+                    f"{x.dtype} axis {axis} order {order}: max_abs_err={err:.3e}")
+            worst[x.dtype] = max(worst[x.dtype], (err / max(scale, 1e-30), err))
+            cases += 1
+
     for b, hw in SHEAR_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = shear_input(gen, b, hw, dtype, device)
             for angle in SHEAR_ANGLES:
                 for axis in (2, 1):
-                    shifts = shear_shifts(angle, b, hw, axis, device)
-                    for order in (0, 1):
-                        got = rotate.shear(x, shifts, order, 0.0, 4, axis)
-                        ref = rotate.shear_plain(x, shifts, order, 0.0, 4, axis)
-                        sync(device)
-                        err = (got[..., :4].float() - ref[..., :4].float()).abs().max().item()
-                        scale = ref[..., :4].float().abs().max().item()
-                        rel = err / max(scale, 1e-30)
-                        exact = torch.equal(got[..., 4:], ref[..., 4:])
-                        if not (math.isfinite(err) and rel <= SHEAR_TOL[dtype] and exact):
-                            raise AssertionError(
-                                f"shear kernel disagrees with plain version: [{b},{hw}] "
-                                f"{dtype} angle {angle} axis {axis} order {order}: "
-                                f"rel={rel:.3e} labels equal={exact}")
-                        worst[dtype] = max(worst[dtype], (rel, err))
+                    check(x, shear_shifts(angle, b, hw, axis, device), axis, f"angle {angle}")
+    for b, h, w, c in SHEAR_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.rand(b, h, w, c, generator=gen, device=device).to(dtype)
+            x[..., -2:] = torch.randint(0, 3, (b, h, w, 2), generator=gen, device=device).to(dtype)
+            for axis in (2, 1):
+                for name, shifts in edge_shifts(b, h if axis == 2 else w, device).items():
+                    check(x, shifts, axis, name)
     for dtype, (rel, err) in worst.items():
         log(f"  shear parity {str(dtype)[6:]:8s}: worst max_abs_err={err:.3e} "
-            f"rel={rel:.3e} over {len(SHEAR_SHAPES) * len(SHEAR_ANGLES) * 4} cases; "
-            f"label/validity bit-equal")
+            f"rel={rel:.3e} over {cases} cases in both types, bit-identical")
     return worst
 
 
@@ -592,8 +665,26 @@ def shear_timing(card: str) -> dict:
     x_nchw = x.permute(0, 3, 1, 2)
     iters = 50
     wrapper_ms = cuda_ms(lambda: rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2), iters)
-    ms = kernel_device_ms(lambda: rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2), "shear_kernel",
-                          iters)
+    # The kernel's device time from a trace of ``iters`` wrapper calls, which
+    # must hold exactly one launch per call and nothing else: the wrapper
+    # quantizes nothing itself.
+    traced = trace_kernels(lambda: [rotate.shear_cuda(x, shifts, 1, 0.0, 4, 2)
+                                    for _ in range(iters)])
+    hits = [(t, n) for key, t, n in traced if "shear_kernel" in key]
+    others = [key for key, _, _ in traced if "shear_kernel" not in key]
+    launches = sum(n for _, n in hits)
+    if others or launches != iters:
+        raise AssertionError(f"{iters} shear calls launched {launches} shear kernels and "
+                             f"{others}: want exactly one launch per call")
+    ms = sum(t for t, _ in hits) / launches
+    # The shear along H (the augmentation's middle shear): device time per
+    # traced launch (a later trace session may drop a few kernel events, so
+    # the count is not checked here).
+    shifts_h = shear_shifts(17.0, b, hw, 1, "cuda")
+    traced_h = [(t, n) for key, t, n in trace_kernels(
+        lambda: [rotate.shear_cuda(x, shifts_h, 1, 0.0, 4, 1) for _ in range(iters)])
+        if "shear" in key]
+    axis1_ms = sum(t for t, _ in traced_h) / sum(n for _, n in traced_h)
     plain_ms = cuda_ms(lambda: rotate.shear_plain(x, shifts, 1, 0.0, 4, 2), iters)
     library_ms = cuda_ms(lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
                                                padding_mode="zeros", align_corners=True),
@@ -604,14 +695,19 @@ def shear_timing(card: str) -> dict:
     t_bytes = nbytes / peaks(name)[1] * 1e3
     t_ops = ops / next(v for k, v in F32_PEAK.items() if k in name) * 1e3
     row = dict(shape=[b, hw, hw, 6], dtype="bfloat16", max_abs_err=err, ms=ms,
-               wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               wrapper_ms=wrapper_ms, axis1_ms=axis1_ms, launches_per_call=launches / iters,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                mbytes=nbytes / 1e6)
     log(f"  shear [{b},{hw},{hw},6] bf16 per launch: kernel {ms:.4f} ms (trace; "
         f"{nbytes / ms / 1e6:.0f} GB/s, {row['bound_ms'] / ms:.1%} of the bound), wrapper "
         f"{wrapper_ms:.4f} ms per call (events), plain {plain_ms:.4f} ms, grid_sample "
         f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-        f"{nbytes / 1e6:.1f} MB); vs plain max_abs_err={err:.3e} [{card}]")
+        f"{nbytes / 1e6:.1f} MB); one launch per call; along H {axis1_ms:.4f} ms per launch "
+        f"(trace); vs plain max_abs_err={err:.3e} [{card}]")
+    if not ms <= library_ms:
+        raise AssertionError(f"the shear kernel ({ms:.4f} ms) is slower than grid_sample "
+                             f"({library_ms:.4f} ms)")
     return row
 
 
@@ -744,8 +840,8 @@ def f32_step_check(card: str, eval_batch: dict, device) -> dict:
 
 # Coarse classes of device kernels by name, for the train step's profile.
 KERNEL_CLASSES = [
-    ("fused conv kernel", ("conv_bf16_kernel", "conv_f32_kernel")),
-    ("shear kernel", ("shear_kernel",)),
+    ("fused conv kernel", ("conv_bf16_wgmma_kernel", "conv_f32_kernel")),
+    ("shear kernel", ("shear_kernel", "shear_h_kernel")),
     ("cuDNN conv", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad", "dgrad")),
     ("optimizer", ("adam",)),
     ("reductions", ("reduce",)),
@@ -771,22 +867,12 @@ def trace_kernels(fn) -> list[tuple[str, float, int]]:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def kernel_device_ms(fn, kernel: str, iters: int) -> float:
-    """Device time per launch of the kernel whose name holds ``kernel``,
-    from a trace of ``iters`` calls of ``fn``: the kernel alone, without
-    the host work and other launches of its wrapper."""
-    hits = [(t, n) for key, t, n in trace_kernels(lambda: [fn() for _ in range(iters)])
-            if kernel in key]
-    launches = sum(n for _, n in hits)
-    if launches != iters:
-        raise AssertionError(f"the trace shows {launches} launches of {kernel}, want {iters}")
-    return sum(t for t, _ in hits) / launches
-
-
-def profile_step(card: str, fn) -> dict:
-    """One call of ``fn`` under torch.profiler: the device time per class
-    of kernel (KERNEL_CLASSES, by name) and the largest kernels."""
-    rows = trace_kernels(fn)
+def profile_step(card: str, fn, calls: int = 1) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: per call, the device
+    time per class of kernel (KERNEL_CLASSES, by name), the launches and the
+    largest kernels."""
+    rows = [(key, t / calls, n / calls)
+            for key, t, n in trace_kernels(lambda: [fn() for _ in range(calls)])]
     total = sum(r[1] for r in rows)
     classes: dict = {}
     for key, t, count in rows:
@@ -797,13 +883,14 @@ def profile_step(card: str, fn) -> dict:
     if total == 0:
         log(f"  profile: the profiler saw no device time [{card}]")
         return {}
-    log(f"  profile of one call: {total:.2f} ms of device time in "
-        f"{sum(r[2] for r in rows)} kernel launches [{card}]")
+    log(f"  profile, per call over {calls}: {total:.3f} ms of device time in "
+        f"{sum(r[2] for r in rows):g} kernel launches [{card}]")
     for name, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
-        log(f"    {name:18s} {ms:8.2f} ms {ms / total:6.1%} ({n} launches)")
+        log(f"    {name:18s} {ms:8.3f} ms {ms / total:6.1%} ({n:g} launches)")
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"    {t:8.3f} ms x{count:<4d} {key[:110]}")
-    return {"device_ms": total, "classes_ms": {k: v[0] for k, v in classes.items()}}
+        log(f"    {t:8.3f} ms x{count:<6g} {key[:110]}")
+    return {"device_ms": total, "launches": sum(r[2] for r in rows),
+            "classes_ms": {k: v[0] for k, v in classes.items()}}
 
 
 def _pack_keys(model) -> list:
@@ -943,9 +1030,11 @@ def run_training(card: str, device="cuda") -> dict:
         result["device_busy_share"] = busy
         log(f"  the loop through the loader kept the device busy ~{busy:.1%} of its "
             f"wall time [{card}]")
+        # The augment step first: a short call, traced over ten calls.
+        result["profile_augment_step"] = profile_step(
+            card, lambda: augment_step(gen, eval_batch), calls=10)
         model.train()
         result["profile_train_step_fused"] = profile_step(card, lambda: train_step(state, fixed))
-        result["profile_augment_step"] = profile_step(card, lambda: augment_step(gen, eval_batch))
     shutil.rmtree(WORK, ignore_errors=True)
     return result
 
@@ -1022,6 +1111,8 @@ def main() -> int:
         # (bilinear on every channel).
         "ms": shear_row["ms"],
         "wrapper_ms": shear_row["wrapper_ms"],
+        "launches_per_call": shear_row["launches_per_call"],
+        "axis1_ms": shear_row["axis1_ms"],  # the shear along H, trace
         "plain_ms": shear_row["plain_ms"],
         "bound_ms": shear_row["bound_ms"],
         "bound_by": shear_row["bound_by"],

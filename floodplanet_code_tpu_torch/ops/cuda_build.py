@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,14 +46,37 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: str) -> str:
+    """Hash of ``src`` and, recursively, of every header it includes with
+    quotes (``#include "x.cuh"``, resolved next to the including file), so a
+    change to any of them builds a new library."""
+    digest = hashlib.sha1()
+    seen: set[str] = set()
+    todo = [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as handle:
+            text = handle.read()
+        digest.update(os.path.basename(path).encode() + b"\0" + text)
+        todo.extend(os.path.join(os.path.dirname(path), inc.decode())
+                    for inc in _INCLUDE.findall(text))
+    return digest.hexdigest()[:12]
+
+
 def build(name: str) -> tuple[str, str]:
     """Compile ``csrc/<name>.cu`` for ``sm_90a`` unless this source version
-    is already built. Returns (library path, compiler report); the report
-    (``ptxas -v``: registers, shared memory, spills) is empty when the
-    library was already there."""
+    (``source_digest``: the file and the headers it includes) is already
+    built. Returns (library path, compiler report); the report (``ptxas
+    -v``: registers, shared memory, spills) is empty when the library was
+    already there."""
     src = source(name)
-    with open(src, "rb") as handle:
-        digest = hashlib.sha1(handle.read()).hexdigest()[:12]
+    digest = source_digest(src)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path, ""

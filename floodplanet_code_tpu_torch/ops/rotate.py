@@ -56,7 +56,8 @@ def _pad(n_lines: int) -> int:
 def _quantize(shifts: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-line (tap offset k, fraction * 65536) as int32 [B, n_lines], with
     the Pallas path's clip and arithmetic (rotate.py:326-334, 248-275): the
-    shift is clipped to +-(pad-1) and split in padded coordinates."""
+    shift is clipped to +-(pad-1) and split in padded coordinates. The CUDA
+    kernel computes the same per line (``csrc/rotate.cu::quantize``)."""
     pad = _pad(shifts.shape[1])
     src = shifts.float().clamp(-pad + 1, pad - 1) + pad
     if order == 0:
@@ -127,8 +128,8 @@ def shear_plain(img, shifts, order=1, cval=0.0, nearest_from=None, axis=2):
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.rs_shear.restype = ctypes.c_int
-    lib.rs_shear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    lib.rs_shear.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
 
 
@@ -139,30 +140,34 @@ def build() -> tuple[str, str]:
 
 
 def shear_cuda(img, shifts, order=1, cval=0.0, nearest_from=None, axis=2):
-    """Launch the CUDA kernel: ``shear_plain``'s function on a card.
-    Raises on a CPU tensor, another dtype than f32/bf16, a bad shape, or a
-    launch error."""
+    """Launch the CUDA kernel: ``shear_plain``'s function on a card, in one
+    launch (the kernel quantizes each line's shift itself, as
+    ``_quantize`` does). Raises on a CPU tensor, another dtype than
+    f32/bf16, a bad shape, or a launch error."""
     _check(img, shifts, axis)
     if not img.is_cuda:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {img.device}")
     if img.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel supports float32 and bfloat16, not {img.dtype}")
+    if shifts.dtype != torch.float32:
+        raise TypeError(f"shifts must be float32, not {shifts.dtype}")
     bsz, h, w, c = img.shape
     if bsz * h * w * c >= 2**31:
         raise ValueError(f"img {tuple(img.shape)} too large for int32 indexing")
     img = img.contiguous()
-    koff, fq = _quantize(shifts, order)
+    shifts = shifts.contiguous()
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
     dev = img.device
     lib = cuda_build.load(_NAME, "rs", _declare, dev)
     cv = float(torch.tensor(cval, dtype=img.dtype))  # the padded value, as P holds it
+    aligned = int(img.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         err = lib.rs_shear(
-            img.data_ptr(), out.data_ptr(), koff.data_ptr(), fq.data_ptr(),
-            bsz, h, w, c, axis, c if nearest_from is None else int(nearest_from),
-            cv, int(img.dtype == torch.bfloat16),
+            img.data_ptr(), out.data_ptr(), shifts.data_ptr(), bsz, h, w, c, axis,
+            int(order), _pad(shifts.shape[1]), c if nearest_from is None else int(nearest_from),
+            cv, int(img.dtype == torch.bfloat16), aligned,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -7,6 +7,8 @@ plain version there. Here: f32, absolute tolerance 1e-5 for the forward
 tests/test_conv_fused.py uses for the JAX kernel.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +16,15 @@ import pytest
 import torch
 
 from floodplanet_code_tpu.ops import conv_fused as jax_conv_fused
-from floodplanet_code_tpu_torch.ops import LAUNCHES
+from floodplanet_code_tpu_torch.ops import LAUNCHES, cuda_build
 from floodplanet_code_tpu_torch.ops.conv_fused import (
     KERNEL,
     pack,
     relu_affine_conv3x3,
     relu_affine_conv3x3_cuda,
     relu_affine_conv3x3_plain,
+    tile_config,
+    unpack,
 )
 
 
@@ -93,17 +97,50 @@ def test_cpu_tensor_never_counts_a_launch(rng):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_lays_out_jax_hwio_taps_zero_padded(rng, dtype):
-    # The kernel's weight operand is the JAX kernel's HWIO weight with the
-    # two tap axes merged (tap = dy*3 + dx), zero-padded to whole blocks.
-    y, a, b, w = _inputs(rng, (1, 8, 8, 5), 7)
+    # unpack() carries every packed stage back to the JAX kernel's HWIO
+    # weight exactly; every element past C1 and C2 (tails in both here) is 0.
+    c1, c2 = 70, 130
+    y, a, b, w = _inputs(rng, (1, 8, 8, c1), c2)
     ap, bp, wp = pack(*_to_torch(y, a, b, w)[1:], dtype)
-    assert wp.shape == (9, 32, 64) and ap.shape == bp.shape == (32,)
+    if dtype == torch.bfloat16:  # [C2p/BN, C1p/64, 9, BN, 64], BN = 256
+        assert wp.shape == (1, 2, 9, 256, 64) and ap.shape == bp.shape == (128,)
+    else:  # [9, C1p, C2p]
+        assert wp.shape == (9, 96, 192) and ap.shape == bp.shape == (96,)
     assert all(t.dtype == dtype for t in (ap, bp, wp))
-    want = torch.from_numpy(w.reshape(9, 5, 7)).to(dtype)
-    assert torch.equal(wp[:, :5, :7], want)
-    assert not wp[:, 5:].any() and not wp[:, :, 7:].any()
-    assert torch.equal(ap[:5], torch.from_numpy(a).to(dtype)) and not ap[5:].any()
-    assert torch.equal(bp[:5], torch.from_numpy(b).to(dtype)) and not bp[5:].any()
+    a2, b2, w2, pad = unpack(ap, bp, wp, c1, c2)
+    assert torch.equal(w2.permute(2, 3, 1, 0), torch.from_numpy(w).to(dtype))
+    assert torch.equal(a2, torch.from_numpy(a).to(dtype))
+    assert torch.equal(b2, torch.from_numpy(b).to(dtype))
+    assert pad.numel() == wp.numel() - 9 * c1 * c2 + 2 * (ap.numel() - c1)
+    assert not pad.any()
+
+
+def test_bf16_pack_is_the_swizzled_stage_image(rng):
+    # Independently of unpack: stage (nt, kc, tap) row n holds w[co, ci] for
+    # co = nt*BN + n, ci = kc*64 + k at the 16-byte group (k // 8) ^ (n % 8),
+    # the 128-byte swizzle of the kernel's shared-memory descriptor.
+    c1, c2 = 100, 300
+    _, a, b, w = _inputs(rng, (1, 4, 4, c1), c2)
+    wt = _to_torch(np.zeros((1, 4, 4, c1), np.float32), a, b, w)[3]
+    wp = pack(torch.from_numpy(a), torch.from_numpy(b), wt, torch.bfloat16)[2].float().numpy()
+    bn = tile_config(c2)[0]
+    nt, kc, tap, n, pos = np.indices(wp.shape)
+    k = ((pos // 8) ^ (n % 8)) * 8 + pos % 8
+    co, ci = nt * bn + n, kc * 64 + k
+    valid = (co < c2) & (ci < c1)
+    want = w[tap // 3, tap % 3, np.minimum(ci, c1 - 1), np.minimum(co, c2 - 1)]
+    want = torch.from_numpy(np.where(valid, want, 0.0)).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(wp, want)
+
+
+def test_tile_configs_are_instantiated():
+    # Every configuration tile_config picks for the UNet's C2 (and the
+    # parity cases' tails) is one the CUDA source instantiates.
+    src = open(cuda_build.source("conv_fused")).read()
+    macro = src[src.index("#define FP_BF16_CONFIGS(X)"):].split("\n")[1]
+    built = {tuple(int(v) for v in m.split(",")) for m in re.findall(r"X\(([\d, ]+)\)", macro)}
+    for c2 in (7, 40, 64, 72, 96, 128, 200, 256, 300, 512):
+        assert tile_config(c2) in built
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(rng):

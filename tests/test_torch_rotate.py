@@ -92,6 +92,27 @@ def test_shear_plain_matches_jax_pallas(rng, interpret_mode, axis, order):
     np.testing.assert_array_equal(got[..., 3:], want[..., 3:])
 
 
+@pytest.mark.parametrize("axis", [2, 1])
+@pytest.mark.parametrize("order", [0, 1])
+def test_shear_plain_matches_jax_pallas_at_quantization_edges(rng, interpret_mode, axis, order):
+    # On 41 lines (odd: every line offset from the centre is an integer):
+    # slope +-1 makes every shift an exact integer and the outer lines pass
+    # +-(pad-1), where the clip binds; slope 3/2^17 puts frac*65536 on a .5
+    # tie at every odd offset (both sides round half to even).
+    n = 41
+    x = _combined(rng, 3, n, 3)
+    shear = np.asarray([1.0, 3.0 / 131072.0, -1.0], np.float32)
+    shifts = trot._row_shifts(torch.from_numpy(shear), n)
+    pad = trot._pad(n)
+    assert (shifts.abs() > pad - 1).any() and torch.equal(shifts[0], shifts[0].round())
+    assert ((shifts[1] * 65536.0).frac().abs() == 0.5).any()
+    jfn = jrot._shear_x_batch if axis == 2 else jrot._shear_y_batch
+    want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(shear), order, 0.0, "pallas", 3))
+    got = trot.shear_plain(torch.from_numpy(x), shifts, order, 0.0, 3, axis).numpy()
+    np.testing.assert_allclose(got[..., :3], want[..., :3], atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got[..., 3:], want[..., 3:])
+
+
 def test_bf16_within_one_rounding_step(rng, interpret_mode):
     # The JAX Pallas body stores its f32 blend into the bf16 output ref,
     # which this JAX version refuses at trace time ("Invalid dtype for
