@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch port's serving, training and fit paths on one NVIDIA
+card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -24,11 +24,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 5. the slice (serving): synthetic PlanetScope scenes written with the
    port's TIFF writer, the full-width early-fusion UNet (base 64, 4 bands,
    3 classes, bf16, conv_impl=pallas_fused) with seeded flax-layout weights
-   carried through the weights bridge, three ``infer`` requests on one warm
-   model (two plain, one with TTA) and one overlapping
-   ``sliding_window_predict`` pass; masks, probabilities, kernel launches
-   (9 per forward) and the agreement with the unfused cuDNN path are
-   checked;
+   carried through the weights bridge, four ``infer`` requests on one warm
+   model (two plain and one with TTA through the HBM scene cache, one plain
+   through the host loader) and one overlapping ``sliding_window_predict``
+   pass; masks, probabilities, kernel launches (9 per forward) and the
+   agreement with the unfused cuDNN path are checked;
 6. shear parity: the row-shear kernel against its plain version, bit for
    bit, at [8, 512, 512, 6] and [2, 300, 300, 6] over five residual angles
    and on the quantization's edges (integer shifts, .5 ties, clipped
@@ -47,17 +47,30 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    the fused eval must agree with the unfused model), exact launch counts
    of both kernels, one f32 step fused + kernel shear against unfused +
    plain shear with an f64 unfused step as the witness, device times of
-   the steps and profiles of one train step and one augment step.
+   the steps and profiles of one train step and one augment step;
+9. fit: the training phase's scenes and model through
+   ``python -m floodplanet_code_tpu_torch.fit`` (its ``main``) with the
+   reference's default transforms: every batch of one epoch from the HBM
+   scene cache against the loader's (bit-identical with norm_mode null,
+   1e-6 with local); a 3-epoch fit with async top-2 checkpoints (index.json
+   held to the retention rules, finite losses, timing.json, exact conv
+   launches: 9 per train step, validation batch and image panel); a resume
+   to a 4th epoch whose restored tensors equal the file's bit for bit; a
+   no-op re-run with no launch; a 2-epoch fit through the host loader; and
+   ``infer`` from the best checkpoint through the cache and the host
+   loader on one warm model (probabilities within 1e-6, argmax equal).
 
-The last five lines of standard output are the serving slice's numbers as
-JSON, the training phase's numbers as JSON, the card's name and power
-limit, the ``kernels`` JSON line and the ``{"ok": true, ...}`` line.
+The last six lines of standard output are the serving slice's numbers as
+JSON, the training phase's numbers as JSON, the fit phase's numbers as
+JSON, the card's name and power limit, the ``kernels`` JSON line and the
+``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -71,7 +84,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from floodplanet_code_tpu_torch.config import Config
+from floodplanet_code_tpu_torch import fit as fit_cli
+from floodplanet_code_tpu_torch.config import Config, load_experiment_config
 from floodplanet_code_tpu_torch.data import (
     BatchLoader,
     build_dataset,
@@ -82,6 +96,10 @@ from floodplanet_code_tpu_torch.data.augment import (
     TransformParams,
     apply_augmentation,
     draw_augmentation,
+)
+from floodplanet_code_tpu_torch.data.device_cache import (
+    build_device_cache,
+    make_batch_builder,
 )
 from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference.infer import (
@@ -103,10 +121,13 @@ from floodplanet_code_tpu_torch.tools.import_jax_params import (
 )
 from floodplanet_code_tpu_torch.train import (
     create_train_state,
+    init_weights,
     make_augment_step,
     make_eval_step,
     make_train_step,
 )
+from floodplanet_code_tpu_torch.train import checkpoint as ckpt
+from floodplanet_code_tpu_torch.train.logging import log_image_panel, open_writer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")  # listed in .gitignore
@@ -163,6 +184,17 @@ SHEAR_TOL = {torch.float32: 1e-5, torch.bfloat16: 3.9e-3}  # of max|ref|
 # Shear parity at the quantization's edges: [B, H, W, C] with W*C not a
 # multiple of the vector width, and C off the kernel's C = 6 path.
 SHEAR_EDGE_SHAPES = [(1, 37, 53, 6), (2, 40, 40, 3), (2, 24, 40, 5)]
+
+# Fit phase: the training phase's scenes, model and batch through the fit
+# CLI with the reference's default transforms (the roll shear: no shear
+# kernel), async checkpoints, top-2 retention and a resume point every
+# second epoch.
+FIT_EPOCHS = 3
+FIT_LIMIT_TRAIN = 15
+FIT_LIMIT_VAL = 2
+FIT_LOG_IMAGE_ITER = 10
+LOCAL_TOL = 1e-6  # cache vs loader with norm_mode local, of max|ref|
+PROB_TOL = 1e-6  # stitched probabilities, cache vs host path
 
 
 def log(msg: str) -> None:
@@ -398,10 +430,11 @@ def slice_config(conv_impl: str) -> Config:
     })
 
 
-def check_masks(paths: list[str]) -> None:
-    if len(paths) != len(SCENES):
-        raise AssertionError(f"{len(paths)} masks for {len(SCENES)} scenes")
-    shapes = sorted(SCENES)
+def check_masks(paths: list[str], scenes=None) -> None:
+    scenes = SCENES if scenes is None else scenes
+    if len(paths) != len(scenes):
+        raise AssertionError(f"{len(paths)} masks for {len(scenes)} scenes")
+    shapes = sorted(scenes)
     got = []
     for path in paths:
         mask = tiff.imread(path)
@@ -468,18 +501,26 @@ def run_slice(card: str, device="cuda") -> dict:
     model = load_model_for_eval(cfg, weights, ds, device)  # warm, on the card
     batches = -(-len(ds) // BATCH)
     batches_overlap = -(-len(ds_overlap) // BATCH)
-    forwards = 2 * batches + 8 * batches + batches_overlap
+    forwards = 4 * batches + 8 * batches + batches_overlap
     log(f"  {len(ds)} tiles per request ({batches} batches of {BATCH}), "
         f"{len(ds_overlap)} tiles in the overlapping pass")
+    # The requests read their scenes through the HBM scene cache (the
+    # config's tpu.device_data_bytes); the "(host)" ones through the host
+    # loader. Request 1 of each warms its path; the two request 2s are the
+    # ones compared.
+    cfg_host = slice_config("pallas_fused")
+    cfg_host.tpu.device_data_bytes = 0
 
     sync(device)
     LAUNCHES.clear()  # the main path starts here
     times = {}
-    for name, tta in (("request 1", False), ("request 2", False), ("request 3 (tta)", True)):
+    for name, c, tta in (("request 1", cfg, False), ("request 1 (host)", cfg_host, False),
+                         ("request 2", cfg, False), ("request 2 (host)", cfg_host, False),
+                         ("request 3 (tta)", cfg, True)):
         with Phase(f"slice: {name}"):
             t0 = time.perf_counter()
-            paths = infer(cfg, None, "floodplanet", "all",
-                          os.path.join(exp, "masks", name.split()[1]),
+            paths = infer(c, None, "floodplanet", "all",
+                          os.path.join(exp, "masks", name.replace(" ", "_")),
                           tta=tta, warm=model, dataset=ds, device=device)
             sync(device)
             times[name] = time.perf_counter() - t0
@@ -539,14 +580,18 @@ def run_slice(card: str, device="cuda") -> dict:
         # stitching, and the share of request 2's wall time it accounts for.
         for name, m in (("fused", model), ("xla", model_xla)):
             fwd = forward[name] = forward_ms(m)
-            busy = batches * fwd / 1e3 / times["request 2"]
             log(f"  forward {name}: {fwd:.3f} ms per batch of {BATCH} "
-                f"({BATCH / fwd * 1e3:.1f} tiles/s); request 2 at that rate keeps "
-                f"the device busy {busy:.1%} of its wall time [{card}]")
+                f"({BATCH / fwd * 1e3:.1f} tiles/s) [{card}]")
+        for name in ("request 2", "request 2 (host)"):
+            busy = batches * forward["fused"] / 1e3 / times[name]
+            log(f"  {name} at the fused rate keeps the device busy {busy:.1%} of its "
+                f"wall time [{card}]")
 
     rates = {
         "request 1": len(ds) / times["request 1"],
+        "request 1 (host)": len(ds) / times["request 1 (host)"],
         "request 2": len(ds) / times["request 2"],
+        "request 2 (host)": len(ds) / times["request 2 (host)"],
         "request 3 (tta)": len(ds) / times["request 3 (tta)"],
         "overlap fused": len(ds_overlap) / times["overlap fused"],
         "overlap xla": len(ds_overlap) / times["overlap xla"],
@@ -1039,6 +1084,359 @@ def run_training(card: str, device="cuda") -> dict:
     return result
 
 
+# -- 9. the fit loop -----------------------------------------------------------
+
+
+def cache_parity(ds, device) -> dict:
+    """Every batch of one shuffled epoch from the scene cache against the
+    loader's at the same indices: bit-identical with norm_mode null, within
+    LOCAL_TOL·max|ref| with local. Returns the worst local errors."""
+    worst = {}
+    order = np.random.default_rng((0, 0)).permutation(len(ds))
+    loader = BatchLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, n_workers=8)
+    for norm in (None, "local"):
+        ds.norm_mode = norm
+        cache = build_device_cache(ds, 6 << 30, device)
+        build = make_batch_builder(cache)
+        loader.set_epoch(0)
+        for k, want in enumerate(loader):
+            got = build(cache.index_rows(ds, order[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH]))
+            for key in ("image", "target", "mean", "std"):
+                g, w = got[key].cpu().numpy(), want[key]
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    raise AssertionError(f"cache {key} {g.shape} {g.dtype} vs loader {w.shape} {w.dtype}")
+                err = float(np.abs(g.astype(np.float64) - w).max())
+                rel = err / max(float(np.abs(w).max()), 1e-30)
+                if (norm is None or key == "target") and not np.array_equal(g, w):
+                    raise AssertionError(f"cache {key} differs from the loader's ({norm}): {err:.3e}")
+                if rel > LOCAL_TOL:
+                    raise AssertionError(f"cache {key} off by {rel:.3e}·max|ref| ({norm})")
+                if norm == "local":
+                    worst[key] = max(worst.get(key, 0.0), rel)
+        log(f"  cache vs loader, norm {norm}: {len(loader)} batches of {TRAIN_BATCH}, "
+            f"{'bit-identical' if norm is None else f'worst rel {worst}'}")
+    ds.norm_mode = None
+    return worst
+
+
+def fit_overrides(data_root: str, exp: str, epochs: int, *extra: str) -> list[str]:
+    return [
+        "dataset.sensor=PS", f"dataset.dataset_kwargs.root_dir={data_root}",
+        f"crop_height={TILE}", f"crop_width={TILE}", f"crop_stride={TILE}",
+        f"batch_size={TRAIN_BATCH}", "n_workers=8", f"n_epochs={epochs}",
+        f"limit_train_batches={FIT_LIMIT_TRAIN}", f"limit_val_batches={FIT_LIMIT_VAL}",
+        "save_topk_models=2", "tpu.resume_every=2", "tpu.async_checkpoint=true",
+        f"log_image_iter={FIT_LOG_IMAGE_ITER}", "tpu.conv_impl=pallas_fused",
+        "tpu.compute_dtype=bfloat16", f"model.model_kwargs.base_feat_channels={BASE}",
+        f"run.dir={exp}", *extra,
+    ]
+
+
+@contextlib.contextmanager
+def watch_checkpoints():
+    """Within the block, record every ``CheckpointManager.save`` (epoch,
+    monitored metric, force, losses, written or not) and hold every
+    ``restore`` to the file it read: model and optimizer tensors bit for
+    bit, and the step."""
+    saves, restores = [], []
+    save, restore = ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore
+
+    def saving(self, state, epoch, metrics, force=False):
+        path = save(self, state, epoch, metrics, force)
+        saves.append({"epoch": epoch, "metric": metrics[ckpt.MONITOR_KEY], "force": force,
+                      "losses": [metrics["train_loss"], metrics["valid_loss"]],
+                      "written": path is not None})
+        return path
+
+    def restoring(self, path, state):
+        state = restore(self, path, state)
+        want = ckpt.read_checkpoint(path)
+        got_model = state.model.state_dict()
+        got_opt = state.optimizer.state_dict()["state"]
+        same = all(torch.equal(got_model[k].cpu(), v) for k, v in want["model"].items())
+        same &= all(torch.equal(got_opt[i][k].cpu(), v) for i, s in want["optimizer"]["state"].items()
+                    for k, v in s.items())
+        if not (same and state.step == want["step"]):
+            raise AssertionError(f"the restored state differs from {path}")
+        restores.append(path)
+        return state
+
+    ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore = saving, restoring
+    try:
+        yield saves, restores
+    finally:
+        ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore = save, restore
+
+
+def expected_index(saves: list[dict], top_k: int, every: int) -> tuple[list, str]:
+    """The retention rules, written out again: (kept (epoch, kind), latest
+    epoch) after ``saves``; an epoch writes when it is forced or a resume
+    point (full) or enters the top-k (slim)."""
+    kept: list[tuple] = []  # (metric, epoch, kind)
+    for s in saves:
+        top = sorted((m for m, _, _ in kept), reverse=True)[:top_k]
+        if s["force"] or s["epoch"] % every == 0:
+            kind = "full"
+        elif len(top) < top_k or s["metric"] > top[-1]:
+            kind = "slim"
+        else:
+            continue
+        kept = sorted(kept + [(s["metric"], s["epoch"], kind)], key=lambda e: -e[0])
+        latest = max(e for _, e, k in kept if k == "full")
+        kept = [e for i, e in enumerate(kept) if i < top_k or e[1] == latest]
+    return sorted((e, k) for _, e, k in kept), latest
+
+
+def check_fit_dir(exp: str, saves: list[dict]) -> dict:
+    with open(os.path.join(exp, "checkpoints", "index.json")) as handle:
+        index = json.load(handle)
+    got = sorted((e["epoch"], e["kind"]) for e in index["entries"])
+    want, latest = expected_index(saves, 2, 2)
+    latest_epoch = next(e["epoch"] for e in index["entries"] if e["name"] == index["latest"])
+    if got != want or latest_epoch != latest:
+        raise AssertionError(f"index.json keeps {got} (latest {latest_epoch}); the retention "
+                             f"rules keep {want} (latest {latest})")
+    for s in saves:
+        if not all(math.isfinite(v) for v in s["losses"]):
+            raise AssertionError(f"non-finite loss in epoch {s['epoch']}: {s['losses']}")
+    with open(os.path.join(exp, "timing.json")) as handle:
+        return json.load(handle)
+
+
+def fit_forwards(timing: dict, n_loader: int, n_valid_batches: int) -> int:
+    """Forwards of a fit: train steps, validation batches, image panels."""
+    epochs = timing["epochs"]
+    steps = sum(e["n_train_batches"] for e in epochs)
+    g0 = epochs[0]["epoch"] * n_loader
+    panels = sum(1 for g in range(g0 + 1, g0 + steps + 1) if g % FIT_LOG_IMAGE_ITER == 0)
+    return steps + len(epochs) * min(FIT_LIMIT_VAL, n_valid_batches) + panels
+
+
+def run_fit(card: str, device="cuda") -> dict:
+    """Phase 9: the fit loop through its CLI on the scene cache, a resume,
+    a no-op re-run, the host loader, and serving from the best checkpoint.
+    ``device="cpu"`` rehearses it at a small size
+    (tests/test_torch_chip_smoke.py): no kernel launches and no device
+    timing then."""
+    on_card = torch.device(device).type == "cuda"
+    data_root = os.path.join(WORK, "fit_data")
+    exp, exp_host = os.path.join(WORK, "fit_exp"), os.path.join(WORK, "fit_exp_host")
+    shutil.rmtree(WORK, ignore_errors=True)
+    with Phase("fit: write scenes"):
+        write_scenes(data_root, TRAIN_SCENES, seed=1)
+    split = dict(sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0,
+                 seed_num=0, train_split_pct=0.8)
+    slices = generate_image_slice_object(TILE, TILE, stride=TILE)
+    ds = build_dataset("floodplanet", "train", slices, **split)
+    n_valid = len(build_dataset("floodplanet", "valid", slices, **split))
+    n_loader, n_valid_batches = len(ds) // TRAIN_BATCH, -(-n_valid // TRAIN_BATCH)
+    with Phase("fit: cache parity"):
+        local_worst = cache_parity(ds, device)
+    cli = ["--device", str(device)]
+    launches = {}
+
+    def counted(name, fn):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        return out, time.perf_counter() - t0
+
+    with Phase(f"fit: {FIT_EPOCHS} epochs through the CLI"), watch_checkpoints() as (saves, _):
+        _, fit_s = counted("fit", lambda: fit_cli.main(cli + fit_overrides(data_root, exp, FIT_EPOCHS)))
+    timing = check_fit_dir(exp, saves)
+    forwards = {"fit": fit_forwards(timing, n_loader, n_valid_batches)}
+    # The resumed epoch runs under the fit's torch.profiler trace
+    # (profiler=advanced): its device-busy share, measured.
+    with Phase("fit: resume to one more epoch"), watch_checkpoints() as (saves_more, restores):
+        counted("resume", lambda: fit_cli.main(cli + fit_overrides(
+            data_root, exp, FIT_EPOCHS + 1, "profiler=advanced")))
+    traced = trace_busy(os.path.join(exp, "profile", f"epoch{FIT_EPOCHS}.json"))
+    log(f"  trace of the resumed epoch: the device busy {traced['busy_share']:.1%} of "
+        f"{traced['span_ms']:.0f} ms, {traced['kernels']} kernels; {traced['gaps_over_1ms']} "
+        f"idle gaps of 1 ms or more, {traced['gaps_ms']:.0f} ms in all; host time in CUDA "
+        f"runtime calls {traced['runtime_ms']} [{card}]")
+    timing_resume = check_fit_dir(exp, saves + saves_more)
+    forwards["resume"] = fit_forwards(timing_resume, n_loader, n_valid_batches)
+    if len(restores) != 1 or [e["epoch"] for e in timing_resume["epochs"]] != [FIT_EPOCHS]:
+        raise AssertionError(f"the resumed fit restored {restores} and ran "
+                             f"{timing_resume['epochs']}, want epoch {FIT_EPOCHS} alone")
+    with Phase("fit: a finished experiment"):
+        best, _ = counted("noop", lambda: fit_cli.main(cli + fit_overrides(data_root, exp, FIT_EPOCHS + 1)))
+    forwards["noop"] = 0
+    with Phase("fit: host loader"), watch_checkpoints() as (saves_host, _):
+        counted("host", lambda: fit_cli.main(cli + fit_overrides(data_root, exp_host, 2,
+                                                                  "tpu.device_data_bytes=0")))
+    timing_host = check_fit_dir(exp_host, saves_host)
+    forwards["host"] = fit_forwards(timing_host, n_loader, n_valid_batches)
+    if not os.path.isfile(os.path.join(best, ckpt.CHECKPOINT_FILE)):
+        raise AssertionError(f"no best checkpoint at {best!r}")
+
+    # Serving from the best checkpoint on one warm model, both input paths.
+    cfg = load_experiment_config(exp)
+    cfg_host = load_experiment_config(exp)
+    cfg_host.tpu.device_data_bytes = 0
+    serve_ds = build_infer_dataset(cfg, "floodplanet", "all")
+    model = load_model_for_eval(cfg, best, serve_ds, device)
+    # In turns (cache, host, host, cache), so that neither path's first
+    # use decides the comparison.
+    serve_s = {"cache": 0.0, "host": 0.0}
+    batch = int(cfg.tpu.inference_batch_size)
+    for k, (name, c) in enumerate((("cache", cfg), ("host", cfg_host),
+                                   ("host", cfg_host), ("cache", cfg))):
+        with Phase(f"fit: serve the best checkpoint ({name})"):
+            paths, seconds = counted(f"serve {k} {name}", lambda: infer(
+                c, None, "floodplanet", "all", os.path.join(WORK, "fit_masks", str(k)),
+                warm=model, dataset=serve_ds, device=device))
+            serve_s[name] += seconds / 2
+            check_masks(paths, TRAIN_SCENES)
+        forwards[f"serve {k} {name}"] = -(-len(serve_ds) // batch)
+    probs = {}
+    for name, budget in (("cache", 6 << 30), ("host", 0)):
+        probs[name] = {s["image_name"]: s["probabilities"] for s in sliding_window_predict(
+            model, serve_ds, batch, n_workers=8, device=device, device_data_bytes=budget)}
+    agree = min(float(np.mean(probs["cache"][k].argmax(-1) == probs["host"][k].argmax(-1)))
+                for k in probs["host"])
+    dprob = max(float(np.abs(probs["cache"][k] - probs["host"][k]).max()) for k in probs["host"])
+    log(f"  served from {os.path.basename(best)}: cache vs host argmax agreement {agree}, "
+        f"max |dp| {dprob:.3e}")
+    if agree != 1.0 or not dprob <= PROB_TOL:
+        raise AssertionError("serving through the cache disagrees with the host path")
+
+    expected = {k: (9 * v if on_card else 0) for k, v in forwards.items()}
+    log(f"  conv launches {launches} for forwards {forwards}")
+    if launches != expected:
+        raise AssertionError(f"expected conv launches {expected}, got {launches}")
+    steady = {"cache": timing["steady_train_tiles_per_sec"],
+              "host": timing_host["steady_train_tiles_per_sec"]}
+    serve_rate = {k: len(serve_ds) / v for k, v in serve_s.items()}
+    result = {
+        "timing": {k: timing[k] for k in ("fit_wall", "setup_wall", "first_step_wall",
+                                          "train_wall", "eval_wall", "ckpt_wall",
+                                          "ckpt_bg_wall", "ckpt_drain_wall", "other_wall")},
+        "timing_host": {k: timing_host[k] for k in ("fit_wall", "setup_wall", "train_wall",
+                                                    "eval_wall", "ckpt_wall")},
+        "steady_train_tiles_per_s": steady, "serve_tiles_per_s": serve_rate,
+        "fit_cli_s": fit_s, "launches": launches, "local_norm_rel": local_worst,
+        "resume_epoch_trace": traced,
+        "epochs": [s["epoch"] for s in saves + saves_more],
+        "val_iou": [s["metric"] for s in saves + saves_more],
+    }
+    # The writer fit_model chose: open_writer's choice in this process.
+    writer, result["writer"] = open_writer(os.path.join(WORK, "writer_probe"))
+    writer.close()
+    log(f"  steady train tiles/s: cache {steady['cache']}, host loader {steady['host']}; "
+        f"serving tiles/s: cache {serve_rate['cache']:.1f}, host {serve_rate['host']:.1f} "
+        f"(host clock) [{card}]")
+    if on_card:
+        result["busy_share"] = fit_busy_shares(card, cfg, ds, timing, timing_host, model,
+                                               serve_s, len(serve_ds), batch)
+    shutil.rmtree(WORK, ignore_errors=True)
+    return result
+
+
+def host_enqueue_ms(fn, calls: int = 5) -> float:
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * sorted(times)[calls // 2]
+
+
+def trace_busy(path: str) -> dict:
+    """The device-busy share of a torch.profiler chrome trace: the union of
+    its kernels' intervals over the span from the trace's first event to
+    its last kernel's end (the profiler's own host cost lowers it); the
+    device's idle gaps of 1 ms or more; and the CUDA runtime calls that
+    took the most host time."""
+    with open(path) as handle:
+        events = [e for e in json.load(handle)["traceEvents"] if e.get("ph") == "X"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    busy, end, gaps = 0.0, -math.inf, []
+    for start, stop in kernels:
+        if end > -math.inf and start - end >= 1e3:
+            gaps.append(start - end)
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    span = (end - min(e["ts"] for e in events)) if kernels else 0.0
+    runtime: dict = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime":
+            runtime[e["name"]] = runtime.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"busy_share": busy / span if span > 0 else 0.0, "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "kernels": len(kernels),
+            "gaps_over_1ms": len(gaps), "gaps_ms": sum(gaps) / 1e3,
+            "runtime_ms": dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def fit_busy_shares(card, cfg, ds, timing, timing_host, model, serve_s, n_serve, batch) -> dict:
+    """Estimated device-busy shares: the device times (CUDA events) of one
+    augment step, train step and cache gather at the fit's shapes, times
+    the steady epochs' steps, over their train wall; and of one serving
+    forward times a request's batches over its wall."""
+    train_model = build_model("ef_model", ds.n_channels, ds.n_classes, dtype=torch.bfloat16,
+                              conv_impl="pallas_fused", base_feat_channels=BASE)
+    state = create_train_state(init_weights(train_model, 0), None, 1e-4)
+    tp = dataclasses.replace(TransformParams.from_config(cfg.transforms), dtype="bfloat16")
+    augment_step = make_augment_step(tp, 0)
+    train_step = make_train_step(train_model, 0, tp, fuse_augmentation=False)
+    cache = build_device_cache(ds, 6 << 30, "cuda")
+    build = make_batch_builder(cache)
+    rows = cache.index_rows(ds, np.arange(TRAIN_BATCH))
+    batch0 = build(rows)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fixed = augment_step(gen, batch0)
+    ms = {"gather": cuda_ms(lambda: build(rows), 10),
+          "augment": cuda_ms(lambda: augment_step(gen, batch0), 10),
+          "train_step": cuda_ms(lambda: train_step(state, fixed), 5),
+          "forward": forward_ms(model)}
+    # Host clock to enqueue one call on an idle card (median of 5): near or
+    # above the device time, the loop waits on the host.
+    out = {"ms": ms, "host_enqueue_ms": {
+        "augment": host_enqueue_ms(lambda: augment_step(gen, batch0)),
+        "train_step": host_enqueue_ms(lambda: train_step(state, fixed))}}
+    # The fit's per-step work alone (gather, augment, train step; no
+    # logging, validation or checkpoint), host clock over 10 steps.
+    order = np.random.default_rng((0, 0)).permutation(len(ds))
+    sync("cuda")
+    t0 = time.perf_counter()
+    for k in range(10):
+        rows_k = cache.index_rows(ds, order[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH])
+        train_step(state, augment_step(gen, build(rows_k)))
+    sync("cuda")
+    out["bare_loop_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 10
+    # One image panel of the fit (train/logging.py) on a batch-8 train
+    # batch, through the writer the fit uses, host clock.
+    writer, _ = open_writer(os.path.join(WORK, "panel_probe"))
+    t0 = time.perf_counter()
+    for k in range(3):
+        log_image_panel(writer, "probe", fixed["image"][0].float().cpu().numpy(),
+                        fixed["mean"][0].cpu().numpy(), fixed["std"][0].cpu().numpy(),
+                        np.zeros((TILE, TILE, 3), np.float32),
+                        fixed["target"][0].cpu().numpy(), ds.to_RGB, k)
+    out["panel_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    writer.close()
+    for name, t, extra in (("fit_cache", timing, ms["gather"]), ("fit_host", timing_host, 0.0)):
+        steady = t["epochs"][1:]
+        steps = sum(e["n_train_batches"] for e in steady)
+        wall = sum(e["train_wall"] for e in steady)
+        out[name] = steps * (ms["augment"] + ms["train_step"] + extra) / 1e3 / wall
+    for name, wall in serve_s.items():
+        out[f"serve_{name}"] = -(-n_serve // batch) * ms["forward"] / 1e3 / wall
+    log(f"  device times {ms} ms, host enqueue {out['host_enqueue_ms']} ms, the bare "
+        f"step loop {out['bare_loop_ms_per_step']:.1f} ms per step, one image panel "
+        f"{out['panel_ms']:.1f} ms (host clock); estimated busy shares "
+        f"{ {k: round(v, 3) for k, v in out.items() if 'ms' not in k} } [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1066,6 +1464,8 @@ def main() -> int:
         shear_row = shear_timing(card)
     with Phase("training"):
         train = run_training(card)
+    with Phase("fit"):
+        fit = run_fit(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -1077,11 +1477,15 @@ def main() -> int:
         "route": "cuda",
         "source": "floodplanet_code_tpu_torch/ops/csrc/conv_fused.cu",
         "replaces": "floodplanet_code_tpu/ops/conv_fused.py:95",
-        # Both main paths: serving (9 per forward) and training (9 per
-        # train-step forward and per fused eval forward).
-        "launches": result["launches"] + train["launches"][conv_fused.KERNEL],
+        # The main paths: serving (9 per forward), training (9 per
+        # train-step forward and per fused eval forward) and the fit loop
+        # (9 per train step, validation batch and image panel, and per
+        # serving forward from its best checkpoint).
+        "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
+                     + sum(fit["launches"].values())),
         "launches_by_path": {"serving": result["launches"],
-                             "training": train["launches"][conv_fused.KERNEL]},
+                             "training": train["launches"][conv_fused.KERNEL],
+                             "fit": sum(fit["launches"].values())},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -1120,6 +1524,7 @@ def main() -> int:
     }]}
     log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
+    log(json.dumps({"fit": fit}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

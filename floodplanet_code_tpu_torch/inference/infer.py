@@ -1,21 +1,25 @@
 """Unlabeled batch inference CLI (port of
 ``floodplanet_code_tpu/inference/infer.py``; reference: st_water_seg/infer.py).
 
-Loads a weights file, runs sliding-window inference over a dataset split
-on the card, and writes binary flood-water masks as *georeferenced* uint8
-GeoTIFFs per region/scene, carrying the source scene's geo tags.
+Loads a checkpoint, runs sliding-window inference over a dataset split
+on the card (through the HBM scene cache when the scenes fit
+``tpu.device_data_bytes``), and writes binary flood-water masks as
+*georeferenced* uint8 GeoTIFFs per region/scene, carrying the source
+scene's geo tags.
 
 The reference forces non-overlapping tiles at infer time
 (stride = min(crop_h, crop_w), infer.py:64-65); reproduced here.
 
-The weights file is a state dict written by
+The checkpoint is either a directory written by the port's ``fit_model``
+(``train/checkpoint.py``; its EMA weights when it has them, as the JAX
+``load_model_for_eval`` does) or a weights file written by
 ``tools/import_jax_params.save_weights`` (orbax checkpoints need JAX; the
 bridge converts them). Its experiment config is found as the JAX CLI finds
-it: ``<experiment>/<sub>/<weights file>`` with the config snapshot under
+it: ``<experiment>/<sub>/<checkpoint>`` with the config snapshot under
 ``<experiment>/hydra/config.yaml``.
 
     python -m floodplanet_code_tpu_torch.inference.infer \\
-        <experiment>/weights/model.pt floodplanet test [--tta] [--device cpu]
+        <experiment>/checkpoints/<entry> floodplanet test [--tta] [--device cpu]
 """
 
 from __future__ import annotations
@@ -36,11 +40,14 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 )
 from floodplanet_code_tpu_torch.models import build_model, resolve_conv_impl
 from floodplanet_code_tpu_torch.tools.import_jax_params import load_weights
+from floodplanet_code_tpu_torch.train.checkpoint import read_checkpoint
 
 
 def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
     """Build the configured model on ``device`` and load ``weights_path``
-    into it (``strict=True``); returns the eval-mode model."""
+    into it (``strict=True``): a checkpoint directory of ``fit_model``
+    (with its ``ema_params`` in place of the parameters when it has them)
+    or a weights file. Returns the eval-mode model."""
     compute_dtype = {
         "bfloat16": torch.bfloat16,
         "float32": torch.float32,
@@ -54,7 +61,15 @@ def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
         conv_impl=resolve_conv_impl(cfg),
         **(cfg.model.get("model_kwargs") or {}),
     )
-    model.load_state_dict(load_weights(weights_path), strict=True)
+    if os.path.isdir(weights_path):
+        payload = read_checkpoint(weights_path)
+        state_dict = dict(payload["model"])
+        # EMA-trained checkpoints evaluate with the averaged weights, the
+        # ones validation selected them by.
+        state_dict.update(payload.get("ema_params") or {})
+    else:
+        state_dict = load_weights(weights_path)
+    model.load_state_dict(state_dict, strict=True)
     return model
 
 
@@ -124,6 +139,7 @@ def infer(
         n_workers=n_workers or cfg.n_workers,
         device=device,
         tta=tta,
+        device_data_bytes=int(cfg.select("tpu.device_data_bytes", 6 << 30) or 0),
     ):
         probs = scene["probabilities"]
         # argmax -> clip to binary water mask (reference infer.py:179-181):
@@ -139,7 +155,8 @@ def infer(
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Batch flood-mask inference from a weights file."
+        description="Batch flood-mask inference from a checkpoint directory "
+        "or a weights file."
     )
     parser.add_argument("weights_path", type=str)
     parser.add_argument("dataset_name", type=str)

@@ -3,14 +3,16 @@
 
 1. enumerates fixed-shape tiles over each scene (same exact-mode crop math
    as training; the dataset does this),
-2. runs the forward in batches on the device (the host loader plus a
-   pinned-memory side-stream prefetch feed it),
+2. runs the forward in batches on the device, fed from the HBM scene
+   cache (data/device_cache.py: the scenes are loaded once, crops are
+   gathered on the card from index rows) when the dataset fits
+   ``device_data_bytes``, else by the host loader plus a pinned-memory
+   side-stream prefetch,
 3. softmaxes on the device and adds the predictions into device-resident
    per-scene canvases (inference/stitcher.py) — no per-tile host traffic,
 4. finalizes each scene once, as soon as its last tile has landed.
 
-Yields host numpy canvases per scene for the CLIs to export. The HBM scene
-cache path of the JAX package (``device_data_bytes``) is not ported yet.
+Yields host numpy canvases per scene for the CLIs to export.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import numpy as np
 import torch
 
 from floodplanet_code_tpu_torch.data import BatchLoader, device_prefetch
+from floodplanet_code_tpu_torch.data.device_cache import (
+    build_device_cache,
+    cache_batches,
+)
 from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.inference.stitcher import (
     DeviceStitcher,
@@ -110,6 +116,35 @@ def _to_model_layout(batch: dict) -> dict:
     return out
 
 
+def _device_cache_batches(dataset, batch_size: int, device_data_bytes: int, device,
+                          n_workers: int):
+    """Index-driven batches from the HBM scene cache with host-side
+    ``valid`` flags and ``metadata``, or None when the dataset does not fit
+    (``build_device_cache`` says why)."""
+    cache = build_device_cache(dataset, device_data_bytes, device, n_workers)
+    if cache is None:
+        return None
+
+    def batches():
+        order = np.arange(len(dataset))
+        for batch, idx, n_real in cache_batches(cache, dataset, batch_size, order):
+            valid = [k < n_real for k in range(batch_size)]
+            batch["valid"] = valid
+            batch["metadata"] = [
+                {
+                    "image_path": dataset.dataset[i].image_path,
+                    "crop_params": dataset.dataset[i].crop_params,
+                    "region_name": dataset.dataset[i].region_name,
+                }
+                if ok
+                else None
+                for i, ok in zip(idx, valid)
+            ]
+            yield batch
+
+    return batches()
+
+
 def sliding_window_predict(
     model,
     dataset,
@@ -117,11 +152,13 @@ def sliding_window_predict(
     n_workers: int = 4,
     device="cuda",
     tta: bool = False,
+    device_data_bytes: int = 6 << 30,
 ) -> Iterator[dict]:
     """Run tiled inference over a dataset; yield per-scene results.
 
     Yields dicts with keys region, image_name, image_path and
     probabilities [H, W, C] (overlap-averaged softmax, numpy f32).
+    ``device_data_bytes``: the HBM scene cache's budget (0 = host loader).
     Raises without a card unless ``device="cpu"``.
     """
     device = resolve_device(device)
@@ -136,16 +173,23 @@ def sliding_window_predict(
         key = f"{example.region_name}/{_image_name(example.image_path)}"
         tiles_remaining[key] = tiles_remaining.get(key, 0) + 1
 
-    loader = BatchLoader(
-        dataset,
-        batch_size=batch_size,
-        shuffle=False,
-        n_workers=n_workers,
-        drop_last=False,
-        output_metadata=True,
-        pad_final=True,
+    batches = (
+        _device_cache_batches(dataset, batch_size, device_data_bytes, device, n_workers)
+        if device_data_bytes
+        else None
     )
-    for batch in device_prefetch(_host_flags(loader), device, size=2):
+    if batches is None:
+        loader = BatchLoader(
+            dataset,
+            batch_size=batch_size,
+            shuffle=False,
+            n_workers=n_workers,
+            drop_last=False,
+            output_metadata=True,
+            pad_final=True,
+        )
+        batches = device_prefetch(_host_flags(loader), device, size=2)
+    for batch in batches:
         probs = predict_step(_to_model_layout(batch))
         metadata = batch["metadata"]
         batch_valid = batch["valid"]

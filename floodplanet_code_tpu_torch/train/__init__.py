@@ -1,4 +1,5 @@
 from floodplanet_code_tpu_torch.train.fit import (
+    fit_model,
     make_augment_step,
     make_eval_step,
     make_loss_fn,
@@ -10,10 +11,12 @@ from floodplanet_code_tpu_torch.train.state import (
     build_optimizer,
     create_train_state,
     ema_decay_at,
+    init_weights,
     make_schedule,
 )
 
 __all__ = [
+    "fit_model",
     "make_augment_step",
     "make_eval_step",
     "make_loss_fn",
@@ -23,5 +26,6 @@ __all__ = [
     "build_optimizer",
     "create_train_state",
     "ema_decay_at",
+    "init_weights",
     "make_schedule",
 ]

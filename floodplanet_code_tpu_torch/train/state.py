@@ -90,6 +90,41 @@ def build_optimizer(
     return opt, rate
 
 
+# flax's truncated-normal variance scaling divides by the standard
+# deviation of a unit normal truncated to [-2, 2] (jax.nn.initializers).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Set ``model`` to the JAX package's initial values and return it.
+
+    Every conv kernel is flax's ``lecun_normal``: a unit normal truncated to
+    [-2, 2], times ``sqrt(1 / fan_in) / 0.8796...`` (models/unet.py:108
+    there); BatchNorm scale 1, bias 0, mean 0, var 1 (:52-58); the head's
+    bias 0. The draws come from a CPU ``torch.Generator`` seeded with
+    ``seed``, in ``named_parameters`` order, so a seed gives the same
+    weights on every device; they are not ``jax.random``'s draws.
+    """
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 4:  # conv kernel [out, in, kh, kw]
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                w = torch.empty(p.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                p.copy_(w * (math.sqrt(1.0 / fan_in) / _TRUNCATED_STD))
+            elif name.endswith(".scale"):
+                p.fill_(1.0)
+            else:  # BatchNorm and head biases
+                p.zero_()
+        for name, b in model.named_buffers():
+            if name.endswith(".var"):
+                b.fill_(1.0)
+            else:
+                b.zero_()
+    return model
+
+
 def create_train_state(
     model: nn.Module,
     state_dict: dict | None,
@@ -103,8 +138,9 @@ def create_train_state(
     """Wrap ``model`` for training (put in train mode).
 
     ``state_dict`` (the weights bridge's, ``tools/import_jax_params.py``)
-    is loaded strictly first when given; the port does not initialize
-    weights itself. ``ema=True`` seeds ``ema_params`` with a copy of the
+    is loaded strictly first when given; otherwise the model keeps the
+    weights it has (``init_weights`` sets the JAX package's initial
+    values). ``ema=True`` seeds ``ema_params`` with a copy of the
     parameters.
     """
     if state_dict is not None:

@@ -59,3 +59,18 @@ def test_no_card_exits_non_zero_without_a_result(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_fit_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "TRAIN_SCENES", [(150, 200)] * 5)
+    monkeypatch.setattr(chip_smoke, "FIT_LIMIT_TRAIN", 3)
+    monkeypatch.setattr(chip_smoke, "FIT_LOG_IMAGE_ITER", 2)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    result = chip_smoke.run_fit("cpu", device="cpu")
+    assert set(result["launches"].values()) == {0}
+    assert result["epochs"] == [0, 1, 2, 3]
+    assert result["steady_train_tiles_per_s"]["cache"] > 0
+    assert not (tmp_path / "work").exists()

@@ -19,7 +19,7 @@ import importlib, json, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
-                        shear_timing, run_training, main)
+                        shear_timing, run_training, cache_parity, run_fit, main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -53,6 +53,11 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.data.augment",
         "floodplanet_code_tpu_torch.train.state",
         "floodplanet_code_tpu_torch.train.fit",
+        "floodplanet_code_tpu_torch.train.checkpoint",
+        "floodplanet_code_tpu_torch.train.logging",
+        "floodplanet_code_tpu_torch.data.device_cache",
+        "floodplanet_code_tpu_torch.utils.image",
+        "floodplanet_code_tpu_torch.fit",
     ):
         assert expected in names
 

@@ -196,3 +196,74 @@ def test_inference_batch_size_matches_jax(overrides):
 
     want = jax_sliding.resolve_inference_batch_size(compose(overrides=overrides), 1)
     assert resolve_inference_batch_size(port_compose(overrides=overrides)) == want
+
+
+def test_cache_path_matches_host_path_and_jax(geo_root, weights):
+    """Serving through the HBM scene cache: the same probabilities as the
+    port's host loader (bit for bit on the CPU: the same batches reach the
+    same forward) and as the JAX package's cache path."""
+    jmodel, variables, tmodel = weights
+    jds = jax_build_dataset(
+        "floodplanet", "test", jax_slices(CROP, stride=16), sensor="PS",
+        eval_region="RegionA", ignore_index=0, output_metadata=True, root_dir=geo_root,
+    )
+    want = {s["image_name"]: s["probabilities"] for s in jax_sliding.sliding_window_predict(
+        jmodel, jax.tree.map(jnp.asarray, variables), jds, batch_size=8, n_workers=2)}
+    ds = build_dataset(
+        "floodplanet", "test", generate_image_slice_object(CROP, stride=16), sensor="PS",
+        eval_region="RegionA", ignore_index=0, output_metadata=True, root_dir=geo_root,
+    )
+    got = {}
+    for budget in (6 << 30, 0):
+        got[budget] = {s["image_name"]: s["probabilities"] for s in sliding_window_predict(
+            tmodel, ds, batch_size=8, n_workers=2, device="cpu", device_data_bytes=budget)}
+    assert sorted(got[0]) == sorted(got[6 << 30]) == sorted(want)
+    for name in want:
+        np.testing.assert_array_equal(got[6 << 30][name], got[0][name])
+        np.testing.assert_allclose(got[6 << 30][name], want[name], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("ema", [False, True], ids=["params", "ema"])
+def test_infer_from_a_checkpoint_directory(geo_root, weights, tmp_path, monkeypatch, ema):
+    """``infer`` on a directory written by the port's CheckpointManager
+    writes the masks the equivalent weights file gives (with an EMA, the
+    EMA weights); the CLI finds the experiment's config two levels above."""
+    import json
+
+    from floodplanet_code_tpu_torch.config import compose as port_compose
+    from floodplanet_code_tpu_torch.config import save_config
+    from floodplanet_code_tpu_torch.inference.infer import main
+    from floodplanet_code_tpu_torch.train import create_train_state
+    from floodplanet_code_tpu_torch.train.checkpoint import MONITOR_KEY, CheckpointManager
+
+    _, variables, _ = weights
+    model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=BASE, device="cpu")
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    state = create_train_state(model, None, 1e-3, ema=ema)
+    served = dict(model.state_dict())
+    if ema:
+        for name, value in state.ema_params.items():
+            value.mul_(0.5)  # the EMA differs from the parameters
+            served[name] = value
+    exp = tmp_path / "exp"
+    save_config(port_compose(overrides=[
+        "crop_height=32", "crop_width=32", "dataset.sensor=PS", "eval_region=RegionA",
+        "n_workers=2", f"model.model_kwargs.base_feat_channels={BASE}",
+        "tpu.conv_impl=pallas_fused", "tpu.compute_dtype=float32",
+    ]), str(exp))
+    manager = CheckpointManager(str(exp), save_top_k=1)
+    entry = manager.save(state, 0, {MONITOR_KEY: 0.5})
+    manager.wait_until_finished()
+    os.makedirs(exp / "weights")
+    save_weights(served, str(exp / "weights" / "model.pt"))
+    monkeypatch.chdir(tmp_path)  # dataset_dirs.json in the cwd wins
+    (tmp_path / "dataset_dirs.json").write_text(json.dumps({"floodplanet": geo_root}))
+    masks = {}
+    for name, path in (("entry", entry), ("weights", str(exp / "weights" / "model.pt"))):
+        written = main([path, "floodplanet", "test", "--device", "cpu",
+                        "--save_dir", str(tmp_path / name)])
+        assert len(written) == 2
+        masks[name] = {os.path.basename(p): tiff.imread(p) for p in written}
+    assert masks["entry"].keys() == masks["weights"].keys()
+    for key, mask in masks["entry"].items():
+        np.testing.assert_array_equal(mask, masks["weights"][key])
