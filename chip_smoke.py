@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and fit paths on one NVIDIA
-card and check them.
+"""Drive the PyTorch port's serving, training, fit and evaluation paths on
+one NVIDIA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -58,12 +58,27 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    to a 4th epoch whose restored tensors equal the file's bit for bit; a
    no-op re-run with no launch; a 2-epoch fit through the host loader; and
    ``infer`` from the best checkpoint through the cache and the host
-   loader on one warm model (probabilities within 1e-6, argmax equal).
+   loader on one warm model (probabilities within 1e-6, argmax equal);
+10. evaluation: ``predict`` from a checkpoint directory of the full-width
+   early-fusion model over the serving phase's scenes (geo-tagged, tiles
+   overlapping by half): with every report and scene artifact (each file
+   must parse, ``pred_class.tif`` must carry the scene's geo tags), with
+   per-crop statistics, with TTA, and with ``conv_impl=xla`` (cuDNN), whose
+   argmax must agree on >= 99.9% of pixels and move <= 0.1% of them to
+   other confusion cells; ``predict`` of the full-width late-fusion model
+   on Sen1Floods11 S1 chips, one flood event held out, through the scene
+   cache and the host loader (probabilities within 1e-6, argmax equal);
+   the HTTP daemon (``serve`` on 127.0.0.1, port 0, in a thread): health,
+   two requests on one root whose masks must equal ``infer``'s bit for
+   bit, the 400 and 404 replies; ``batch_infer`` over two roots, its masks
+   equal to ``infer``'s; exact conv launches; the predict split (forward
+   by CUDA events, loading + stitching, metrics, artifacts on the host
+   clock) and the daemon's cold and warm request seconds.
 
-The last six lines of standard output are the serving slice's numbers as
+The last seven lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
-JSON, the card's name and power limit, the ``kernels`` JSON line and the
-``{"ok": true, ...}`` line.
+JSON, the evaluation phase's numbers as JSON, the card's name and power
+limit, the ``kernels`` JSON line and the ``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -85,7 +100,7 @@ import torch
 import torch.nn.functional as F
 
 from floodplanet_code_tpu_torch import fit as fit_cli
-from floodplanet_code_tpu_torch.config import Config, load_experiment_config
+from floodplanet_code_tpu_torch.config import Config, compose, load_experiment_config, save_config
 from floodplanet_code_tpu_torch.data import (
     BatchLoader,
     build_dataset,
@@ -102,6 +117,9 @@ from floodplanet_code_tpu_torch.data.device_cache import (
     make_batch_builder,
 )
 from floodplanet_code_tpu_torch.geo import tiff
+from floodplanet_code_tpu_torch.inference import batch_infer as batch_infer_mod
+from floodplanet_code_tpu_torch.inference import predict as predict_mod
+from floodplanet_code_tpu_torch.inference import serve as serve_mod
 from floodplanet_code_tpu_torch.inference.infer import (
     build_infer_dataset,
     infer,
@@ -195,6 +213,13 @@ FIT_LIMIT_VAL = 2
 FIT_LOG_IMAGE_ITER = 10
 LOCAL_TOL = 1e-6  # cache vs loader with norm_mode local, of max|ref|
 PROB_TOL = 1e-6  # stitched probabilities, cache vs host path
+
+# Evaluation phase: predict over the serving phase's scenes with tiles
+# overlapping by half (the config's default crop_stride is 150 at 300^2
+# crops), and Sen1Floods11 chips of one tile each, EVAL_CHIPS per flood
+# event, the first event held out.
+EVAL_REGIONS = ("Bolivia", "Ghana", "Mekong")
+EVAL_CHIPS = 8
 
 
 def log(msg: str) -> None:
@@ -402,9 +427,10 @@ def kernel_timing(card: str) -> list[dict]:
 # -- 5. the slice ------------------------------------------------------------
 
 
-def write_scenes(root: str, scenes=None, seed: int = 0) -> None:
+def write_scenes(root: str, scenes=None, seed: int = 0, geo_from: str | None = None) -> None:
     """Synthetic CSDAP-layout PlanetScope scenes (uint16, 4 bands, stored
-    HWC) with labels, written by the port's TIFF writer."""
+    HWC) with labels, written by the port's TIFF writer (with the geo tags
+    of ``geo_from`` when given)."""
     rng = np.random.default_rng(seed)
     base = os.path.join(root, "CSDAP_complete", "RegionA")
     os.makedirs(os.path.join(base, "labels"), exist_ok=True)
@@ -414,7 +440,8 @@ def write_scenes(root: str, scenes=None, seed: int = 0) -> None:
         img = rng.integers(0, 8000, size=(h, w, 4), dtype=np.uint16)
         img[..., 0] = np.where(label == 2, 7200, 800)
         tiff.imwrite(os.path.join(base, "labels", f"scene_{i}.tif"), label)
-        tiff.imwrite(os.path.join(base, "PS", f"scene_{i}.tif"), img, planar_as_chw=False)
+        tiff.imwrite(os.path.join(base, "PS", f"scene_{i}.tif"), img, planar_as_chw=False,
+                     geo_from=geo_from)
 
 
 def slice_config(conv_impl: str) -> Config:
@@ -1437,6 +1464,327 @@ def fit_busy_shares(card, cfg, ds, timing, timing_host, model, serve_s, n_serve,
     return out
 
 
+# -- 10. evaluation: predict, serve, batch_infer --------------------------------
+
+
+def write_geo_source(path: str) -> str:
+    """A small GeoTIFF with pixel scale, tie point and geo keys (UTM 31N),
+    the source whose tags the synthetic scenes carry."""
+    from PIL import Image
+    from PIL.TiffImagePlugin import ImageFileDirectory_v2
+
+    ifd = ImageFileDirectory_v2()
+    for tag, typ, value in ((33550, 12, (3.0, 3.0, 0.0)),
+                            (33922, 12, (0.0, 0.0, 0.0, 500000.0, 4100000.0, 0.0)),
+                            (34735, 3, (1, 1, 0, 2, 1024, 0, 1, 1, 3072, 0, 1, 32631))):
+        ifd[tag] = value
+        ifd.tagtype[tag] = typ
+    Image.fromarray(np.zeros((4, 4), np.uint8)).save(path, tiffinfo=ifd)
+    return path
+
+
+def write_chips(root: str, seed: int = 0) -> None:
+    """Synthetic Sen1Floods11 hand-labeled chips (TILE^2, S1 VV/VH in dB as
+    f32, labels {-1, 0, 1} as int16), EVAL_CHIPS per region, written by
+    the port's TIFF writer."""
+    rng = np.random.default_rng(seed)
+    for sub in ("S1Hand", "LabelHand"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for region in EVAL_REGIONS:
+        for i in range(EVAL_CHIPS):
+            stem = f"{region}_{100 + i}"
+            label = rng.choice([-1, 0, 1], size=(TILE, TILE), p=[0.1, 0.6, 0.3]).astype(np.int16)
+            s1 = rng.uniform(-30.0, 5.0, size=(2, TILE, TILE)).astype(np.float32)
+            s1[0] = np.where(label == 1, 4.0, -25.0)
+            tiff.imwrite(os.path.join(root, "LabelHand", f"{stem}_LabelHand.tif"), label)
+            tiff.imwrite(os.path.join(root, "S1Hand", f"{stem}_S1Hand.tif"), s1)
+
+
+def eval_overrides(data_root: str, *extra: str) -> list[str]:
+    return [f"dataset.dataset_kwargs.root_dir={data_root}", f"crop_height={TILE}",
+            f"crop_width={TILE}", f"crop_stride={TILE // 2}", "n_workers=8",
+            f"tpu.inference_batch_size={BATCH}", "tpu.conv_impl=pallas_fused",
+            "tpu.compute_dtype=bfloat16", f"model.model_kwargs.base_feat_channels={BASE}",
+            *extra]
+
+
+def seeded_checkpoint(cfg: Config, exp: str, in_channels, seed: int, device) -> str:
+    """An experiment directory with ``cfg`` and one CheckpointManager entry
+    holding seeded flax-layout weights (through the weights bridge)."""
+    save_config(cfg, exp)
+    model = build_model(cfg.model.name, in_channels, 3, device=device,
+                        **(cfg.model.get("model_kwargs") or {}))
+    bridge_in = in_channels if cfg.model.name == "lf_model" else sum(in_channels.values())
+    model.load_state_dict(state_dict_from_flax(seeded_flax_variables(bridge_in, 3, BASE, seed)),
+                          strict=True)
+    manager = ckpt.CheckpointManager(exp, save_top_k=1)
+    entry = manager.save(create_train_state(model, None, 1e-4), 0, {ckpt.MONITOR_KEY: 0.5})
+    manager.wait_until_finished()
+    return entry
+
+
+def check_predict_dir(pred_dir: str, scenes: list[dict], geo_from: str | None) -> None:
+    """Every file of predict's layout exists and parses; pred_class.tif
+    carries its scene's geo tags."""
+    from PIL import Image
+
+    with open(os.path.join(pred_dir, "metrics.json")) as handle:
+        metrics = json.load(handle)
+    for key in ("test_MulticlassJaccardIndex", "test_MulticlassF1Score", "test_water_IoU"):
+        if not math.isfinite(metrics[key]):
+            raise AssertionError(f"metrics.json {key} = {metrics[key]}")
+    for name in ("images_F1-score", "images_mIoU", "regions_F1-Score", "regions_iou"):
+        with open(os.path.join(pred_dir, f"ranked_{name}.txt")) as handle:
+            rows = handle.read().splitlines()[2:]
+        if not rows or not all(math.isfinite(float(r.rsplit(": ", 1)[1].rstrip("% ")))
+                               for r in rows):
+            raise AssertionError(f"ranked_{name}.txt does not parse: {rows}")
+    for scene in scenes:
+        d = os.path.join(pred_dir, "image_predictions", scene["region"], scene["image_name"])
+        shape = scene["probabilities"].shape[:2]
+        for png in ("rgb.png", "pred_softmax.png", "gt.png", "cm.png"):
+            with Image.open(os.path.join(d, png)) as img:
+                if img.size[::-1] != shape:
+                    raise AssertionError(f"{d}/{png}: {img.size} for a {shape} scene")
+        with Image.open(os.path.join(d, "rgb_cm.gif")) as gif:
+            if gif.n_frames != 2:
+                raise AssertionError(f"{d}/rgb_cm.gif has {gif.n_frames} frames")
+        mask = tiff.imread(os.path.join(d, "pred_class.tif"))
+        if mask.shape != shape or not set(np.unique(mask)) <= {0, 1}:
+            raise AssertionError(f"{d}/pred_class.tif: {mask.shape} {np.unique(mask)}")
+        with tiff.TiffFile(os.path.join(d, "pred_class.tif")) as got, \
+                tiff.TiffFile(scene["image_path"]) as src:
+            if geo_from is not None and not got.geo_tags():
+                raise AssertionError(f"{d}/pred_class.tif lost its geo tags")
+            if got.geo_tags() != src.geo_tags():
+                raise AssertionError(f"{d}/pred_class.tif: geo tags differ from the scene's")
+
+
+def http(url: str, body=None) -> tuple[int, dict]:
+    """(status, JSON reply) of a GET (no body) or POST to the local daemon."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes) else
+                                      json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def read_masks(paths: list[str]) -> dict:
+    return {os.path.basename(p): tiff.imread(p) for p in paths}
+
+
+def same_masks(got: dict, want: dict, what: str) -> None:
+    if got.keys() != want.keys() or not got:
+        raise AssertionError(f"{what}: masks {sorted(got)} != {sorted(want)}")
+    for key, mask in want.items():
+        if not np.array_equal(got[key], mask):
+            raise AssertionError(f"{what}: {key} differs from infer's "
+                                 f"({np.mean(got[key] != mask):.3e} of its pixels)")
+
+
+def run_evaluation(card: str, device="cuda") -> dict:
+    """Phase 10: ``predict`` of the early-fusion model on the serving
+    phase's scenes (artifacts, per-crop stats, TTA, and against the unfused
+    cuDNN path) and of the late-fusion model on Sen1Floods11 chips (the
+    cache path against the host loader), then the HTTP daemon and
+    ``batch_infer`` against ``infer``. ``device="cpu"`` rehearses it at a
+    small size (tests/test_torch_chip_smoke.py): no kernel launches and no
+    device timing then."""
+    on_card = torch.device(device).type == "cuda"
+    data_root, root2 = os.path.join(WORK, "eval_data"), os.path.join(WORK, "eval_data_2")
+    s1_root = os.path.join(WORK, "eval_s1f11")
+    exp, exp_lf = os.path.join(WORK, "eval_exp"), os.path.join(WORK, "eval_exp_lf")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    with Phase("evaluation: write scenes"):
+        geo = write_geo_source(os.path.join(WORK, "geo.tif"))
+        write_scenes(data_root, geo_from=geo)
+        write_scenes(root2, SCENES[-1:], seed=5, geo_from=geo)
+        write_chips(s1_root)
+    cfg = compose(overrides=eval_overrides(data_root, "dataset.sensor=PS", "eval_region=RegionA",
+                                           "ignore_index=0"))
+    entry = seeded_checkpoint(cfg, exp, {"ms_image": 4}, 0, device)
+    launches, forwards, out = {}, {}, {}
+
+    def counted(name, fn, n_forwards):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        forwards[name] = n_forwards
+        return result, time.perf_counter() - t0
+
+    # Early fusion on FloodPlanet: artifacts on, scene-level ranking, timed.
+    scenes, timing = {}, {}
+
+    def keep(store):
+        def hook(scene, pred_class, confusion):
+            store[scene["image_name"]] = (scene, pred_class, confusion)
+        return hook
+
+    def run_predict(name, c, exp_dir, tta=False, **kw):
+        store = {}
+        with Phase(f"evaluation: predict, {name}"):
+            metrics, seconds = counted(name, lambda: predict_mod.predict(
+                c, exp_dir, entry, c.dataset.name, tta=tta, device=device,
+                on_scene=keep(store), **kw), 0)
+        return metrics, seconds, store
+
+    metrics, seconds, scenes["fused"] = run_predict("ef fused", cfg, exp, timing=timing)
+    batches = timing["batches"]
+    forwards["ef fused"] = batches
+    check_predict_dir(timing["pred_dir"], [v[0] for v in scenes["fused"].values()], geo)
+    # The wall's parts: setup, the scene loop (forward by CUDA events; the
+    # rest of it loading and stitching), metrics and what the artifacts add
+    # (preparing them and waiting for the writer threads); beside them, the
+    # writer threads' own host seconds.
+    split = {"forward_s": (timing["forward_ms"] or 0.0) / 1e3,
+             "load_stitch_s": timing["loop_s"] - (timing["forward_ms"] or 0.0) / 1e3,
+             "metrics_s": timing["metrics_s"], "artifacts_wait_s": timing["artifacts_wait_s"],
+             "setup_s": timing["setup_s"]}
+    out["predict"] = {"tiles": timing["tiles"], "scenes": timing["scenes"], "batches": batches,
+                      "seconds": seconds, "tiles_per_s": timing["tiles"] / seconds,
+                      "split_s": split,
+                      "per_scene_s": {k: v / timing["scenes"] for k, v in split.items()},
+                      "artifact_writers_s": timing["artifacts_s"], "metrics": metrics}
+    log(f"  predict (fused, artifacts): {timing['tiles']} tiles in {timing['scenes']} scenes, "
+        f"{seconds:.2f} s = {timing['tiles'] / seconds:.1f} tiles/s; split {split}, writer "
+        f"threads {timing['artifacts_s']:.2f} s (forward: CUDA events; the rest host clock) "
+        f"[{card}]")
+    _, _, _ = run_predict("ef per-crop", cfg, os.path.join(WORK, "eval_exp_crop"),
+                          per_crop_stats=True, predict_images=False)
+    forwards["ef per-crop"] = batches
+    _, tta_s, _ = run_predict("ef tta", cfg, os.path.join(WORK, "eval_exp_tta"), tta=True,
+                              predict_images=False)
+    forwards["ef tta"] = 8 * batches
+    cfg_xla = compose(overrides=eval_overrides(data_root, "dataset.sensor=PS",
+                                               "eval_region=RegionA", "ignore_index=0",
+                                               "tpu.conv_impl=xla"))
+    _, xla_s, scenes["xla"] = run_predict("ef xla", cfg_xla, os.path.join(WORK, "eval_exp_xla"),
+                                          predict_images=False)
+    forwards["ef xla"] = 0  # cuDNN: no fused-conv launch
+    fused, unfused = scenes["fused"], scenes["xla"]
+    agree = float(np.mean(np.concatenate([
+        (fused[k][1] == unfused[k][1]).ravel() for k in fused])))
+    cm_f = sum(v[2] for v in fused.values())
+    cm_x = sum(v[2] for v in unfused.values())
+    moved = float(np.abs(cm_f - cm_x).sum() / 2 / cm_f.sum())
+    # As in the slice: the seeded weights predict one class almost
+    # everywhere, so the probabilities are held to DPROB_TOL as well.
+    dprob = max(float(np.abs(fused[k][0]["probabilities"] - unfused[k][0]["probabilities"])
+                      .max()) for k in fused)
+    log(f"  predict fused vs xla (cuDNN): argmax agreement {agree:.6f}, share of pixels in "
+        f"other confusion cells {moved:.3e}, max |dp| {dprob:.3e}")
+    if agree < 0.999 or moved > 1e-3 or not dprob <= DPROB_TOL:
+        raise AssertionError("fused and unfused predict disagree")
+    out["fused_vs_xla"] = {"argmax_agree": agree, "confusion_moved": moved, "max_dprob": dprob}
+    out["predict_s"] = {"fused": seconds, "tta": tta_s, "xla": xla_s}
+
+    # Late fusion on Sen1Floods11, leave-one-region-out: the cache path
+    # against the host loader.
+    cfg_lf = compose(overrides=eval_overrides(
+        s1_root, "dataset=sen1floods11", "dataset.sensor=S1", "model=lf_model",
+        f"eval_region={EVAL_REGIONS[0]}", "ignore_index=-1"))
+    entry_lf = seeded_checkpoint(cfg_lf, exp_lf, {"ms_image": 2}, 1, device)
+    cfg_lf_host = load_experiment_config(exp_lf)
+    cfg_lf_host.tpu.device_data_bytes = 0
+    lf = {}
+    for name, c in (("lf cache", cfg_lf), ("lf host", cfg_lf_host)):
+        store, t = {}, {}
+        with Phase(f"evaluation: predict, {name}"):
+            lf[name], _ = counted(name, lambda: (predict_mod.predict(
+                c, exp_lf, entry_lf, "sen1floods11", device=device, on_scene=keep(store),
+                timing=t, predict_images=name == "lf cache"), store), 0)
+        forwards[name] = t["batches"]
+    (m_cache, lf_cache), (m_host, lf_host) = lf["lf cache"], lf["lf host"]
+    if sorted(lf_cache) != sorted(lf_host) or len(lf_cache) != EVAL_CHIPS:
+        raise AssertionError(f"late fusion: scenes {sorted(lf_cache)} vs {sorted(lf_host)}")
+    dprob = max(float(np.abs(lf_cache[k][0]["probabilities"] - lf_host[k][0]["probabilities"])
+                      .max()) for k in lf_cache)
+    lf_agree = all(np.array_equal(lf_cache[k][1], lf_host[k][1]) for k in lf_cache)
+    log(f"  late fusion on Sen1Floods11 ({EVAL_REGIONS[0]} held out, {len(lf_cache)} chips): "
+        f"cache vs host loader max |dp| {dprob:.3e}, argmax equal {lf_agree}; "
+        f"test_MulticlassJaccardIndex {m_cache['test_MulticlassJaccardIndex']:.4f}")
+    if not (dprob <= PROB_TOL and lf_agree and m_cache == m_host):
+        raise AssertionError("late fusion: the cache path disagrees with the host loader")
+    check_predict_dir(os.path.join(exp_lf, "predictions", "sen1floods11", EVAL_REGIONS[0],
+                                   os.path.basename(entry_lf)),
+                      [v[0] for v in lf_cache.values()], None)
+    out["late_fusion"] = {"max_dprob": dprob, "metrics": m_cache}
+
+    # The daemon: two requests on one root (the second warm), then errors.
+    cfg_serve = load_experiment_config(exp)
+    cfg_serve.eval_region = None
+    ds_serve = build_infer_dataset(cfg_serve, "floodplanet", "all", root_dir=data_root)
+    n_req = -(-len(ds_serve) // BATCH)
+    want, _ = counted("infer reference", lambda: read_masks(infer(
+        cfg_serve, entry, "floodplanet", "all", os.path.join(WORK, "eval_infer"),
+        dataset=ds_serve, device=device)), n_req)
+    server = serve_mod.serve(entry, "127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    serve_s = []
+    try:
+        with Phase("evaluation: serve"):
+            status, health = http(url + "/healthz")
+            if status != 200 or health["device"] != str(torch.device(device)) or \
+                    health["model_loaded"]:
+                raise AssertionError(f"/healthz: {status} {health}")
+            for k in range(2):
+                (status, reply), secs = counted(f"serve {k}", lambda: http(
+                    url + "/infer", {"root": data_root,
+                                     "save_dir": os.path.join(WORK, f"eval_serve_{k}")}), n_req)
+                if status != 200:
+                    raise AssertionError(f"/infer: {status} {reply}")
+                same_masks(read_masks(reply["written"]), want, f"serve request {k}")
+                serve_s.append(secs)
+            codes = [http(url + "/infer", b"{not json")[0],
+                     http(url + "/infer", {"split": "all"})[0],
+                     http(url + "/nope")[0],
+                     http(url + "/infer", {"root": os.path.join(WORK, "absent")})[0]]
+            if codes != [400, 400, 404, 404]:
+                raise AssertionError(f"error replies {codes}, want [400, 400, 404, 404]")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    log(f"  serve: {len(ds_serve)} tiles per request, cold {serve_s[0]:.2f} s, warm "
+        f"{serve_s[1]:.2f} s ({len(ds_serve) / serve_s[1]:.1f} tiles/s, host clock) [{card}]")
+    out["serve_s"] = {"cold": serve_s[0], "warm": serve_s[1], "tiles": len(ds_serve)}
+
+    # batch_infer over two roots, against infer per root.
+    cfg_b = load_experiment_config(exp)
+    ds2 = build_infer_dataset(cfg_b, "floodplanet", "all", root_dir=root2)
+    n2 = -(-len(ds2) // BATCH)
+    with Phase("evaluation: batch_infer"):
+        results, batch_s = counted("batch_infer", lambda: batch_infer_mod.batch_infer(
+            entry, "floodplanet", [data_root, root2], save_dir=os.path.join(WORK, "eval_batch"),
+            device=device), n_req + n2)
+    ds1 = build_infer_dataset(cfg_b, "floodplanet", "all", root_dir=data_root)
+    for root, ds in ((data_root, ds1), (root2, ds2)):
+        ref, _ = counted(f"infer {os.path.basename(root)}", lambda: read_masks(infer(
+            cfg_b, entry, "floodplanet", "all", os.path.join(WORK, "eval_ref", os.path.basename(
+                root)), dataset=ds, device=device)), -(-len(ds) // BATCH))
+        same_masks(read_masks(results[root]), ref, f"batch_infer {root}")
+    out["batch_infer_s"] = batch_s
+
+    expected = {k: (9 * v if on_card else 0) for k, v in forwards.items()}
+    log(f"  conv launches {launches} for forwards {forwards}")
+    if launches != expected:
+        raise AssertionError(f"expected conv launches {expected}, got {launches}")
+    out["launches"] = launches
+    shutil.rmtree(WORK, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1466,6 +1814,8 @@ def main() -> int:
         train = run_training(card)
     with Phase("fit"):
         fit = run_fit(card)
+    with Phase("evaluation"):
+        evaluation = run_evaluation(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -1478,14 +1828,16 @@ def main() -> int:
         "source": "floodplanet_code_tpu_torch/ops/csrc/conv_fused.cu",
         "replaces": "floodplanet_code_tpu/ops/conv_fused.py:95",
         # The main paths: serving (9 per forward), training (9 per
-        # train-step forward and per fused eval forward) and the fit loop
-        # (9 per train step, validation batch and image panel, and per
-        # serving forward from its best checkpoint).
+        # train-step forward and per fused eval forward), the fit loop (9
+        # per train step, validation batch and image panel, and per serving
+        # forward from its best checkpoint) and evaluation (9 per forward
+        # of predict, the daemon and batch_infer; none on the cuDNN run).
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
-                     + sum(fit["launches"].values())),
+                     + sum(fit["launches"].values()) + sum(evaluation["launches"].values())),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
-                             "fit": sum(fit["launches"].values())},
+                             "fit": sum(fit["launches"].values()),
+                             "evaluation": sum(evaluation["launches"].values())},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -1525,6 +1877,7 @@ def main() -> int:
     log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(json.dumps({"fit": fit}))
+    log(json.dumps({"evaluation": evaluation}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """FloodPlanet dataset: region discovery, splits, and tile loading.
 
 The PyTorch port's own copy of ``floodplanet_code_tpu/data/dataset.py``
-(FloodPlanet only; Sen1Floods11 is not ported yet). It is plain numpy, so
-the port keeps it as it is; OpenCV is imported only on the resize paths.
+(Sen1Floods11 subclasses it in data/sen1floods11.py). It is plain numpy,
+so the port keeps it as it is; OpenCV is imported only on the resize paths.
 
 Mirrors the reference's Floodplanet_Dataset behavior
 (st_water_seg/datasets/floodplanet.py:19-658) with a windowed data path:
@@ -22,8 +22,8 @@ Mirrors the reference's Floodplanet_Dataset behavior
   NCHW tensors they are already ``channels_last`` in memory, which is the
   layout the port's kernels read.
 
-Augmentation is deliberately *not* applied here (training augmentation
-runs batched on the device; not yet ported).
+Augmentation is deliberately *not* applied here: training augmentation
+runs batched on the device (data/augment.py).
 """
 
 from __future__ import annotations
@@ -627,9 +627,15 @@ class FloodPlanetDataset:
         return sensor_lib.to_rgb(image, self.sensor, self.channels, gamma=gamma)
 
 
-# Sen1Floods11 is not ported yet (ROADMAP Queue 1).
+def _sen1floods11():
+    from floodplanet_code_tpu_torch.data.sen1floods11 import Sen1Floods11Dataset
+
+    return Sen1Floods11Dataset
+
+
 DATASETS = {
     "floodplanet": FloodPlanetDataset,
+    "sen1floods11": _sen1floods11,
 }
 
 
@@ -645,6 +651,8 @@ def build_dataset(dset_name: str, split: str, slice_params: ImageSlice, **kwargs
         raise KeyError(
             f'Dataset "{dset_name}" not found. Available: {sorted(DATASETS)}'
         )
+    if not isinstance(dataset_cls, type):  # lazy-import entries
+        dataset_cls = dataset_cls()
     root_dir = kwargs.pop("root_dir", None)
     if root_dir is None:
         from floodplanet_code_tpu_torch.config import get_dataset_root

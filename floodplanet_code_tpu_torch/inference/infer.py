@@ -73,6 +73,12 @@ def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
     return model
 
 
+def model_key(dataset) -> tuple:
+    """What a warm model depends on in a dataset: its modality -> channel
+    counts (a dict, made hashable) and its class count."""
+    return tuple(sorted(dataset.n_channels.items())), int(dataset.n_classes)
+
+
 def build_infer_dataset(cfg, dataset_name: str, split: str, eval_region=None,
                         root_dir: str | None = None):
     """The dataset ``infer`` tiles: non-overlapping crops (reference

@@ -12,7 +12,9 @@
    per-scene canvases (inference/stitcher.py) — no per-tile host traffic,
 4. finalizes each scene once, as soon as its last tile has landed.
 
-Yields host numpy canvases per scene for the CLIs to export.
+Yields host numpy canvases per scene for the CLIs to export/report on; for
+``predict`` also the stitched input and label canvases and per-crop
+confusion matrices.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from floodplanet_code_tpu_torch.inference.stitcher import (
     make_tile_valid_mask,
 )
 from floodplanet_code_tpu_torch.models.water_seg import AUX_FEATURE_KEYS
+from floodplanet_code_tpu_torch.ops.metrics import confusion_from_preds
 
 
 def _d4_elements(square: bool):
@@ -153,20 +156,41 @@ def sliding_window_predict(
     device="cuda",
     tta: bool = False,
     device_data_bytes: int = 6 << 30,
+    collect_extras: bool = False,
+    per_crop_ignore_index: int | None = None,
+    forward_events: list | None = None,
 ) -> Iterator[dict]:
     """Run tiled inference over a dataset; yield per-scene results.
 
     Yields dicts with keys region, image_name, image_path and
-    probabilities [H, W, C] (overlap-averaged softmax, numpy f32).
+    probabilities [H, W, C] (overlap-averaged softmax, numpy f32), and
+    optionally (``collect_extras``) the stitched ``rgb`` [H, W, C_in]
+    un-normalized input canvas (``image * std + mean``) and ``gt`` [H, W]
+    label canvas for report generation (predict.py:268-347 of the
+    reference).
+
+    ``per_crop_ignore_index``: when set, every scene result also carries
+    ``crop_confusions`` [n_tiles, C, C], one confusion matrix per crop as
+    the model saw it (ragged-edge mask applied, this ignore_index dropped),
+    computed on the device for a whole batch at once; the reference's
+    per-crop metric tallies (predict.py:236-261).
+
     ``device_data_bytes``: the HBM scene cache's budget (0 = host loader).
-    Raises without a card unless ``device="cpu"``.
+    ``forward_events``: a list that receives one (start, end) pair of CUDA
+    events around each batch's forward, for a caller that times the
+    forward on the device without a sync per batch. Raises without a card
+    unless ``device="cpu"``.
     """
     device = resolve_device(device)
     predict_step = make_predict_step(model, tta=tta)
+    timed = forward_events is not None and device.type == "cuda"
 
-    pred_stitcher = DeviceStitcher(dataset.n_classes, device=device)
+    n_classes = dataset.n_classes
+    pred_stitcher = DeviceStitcher(n_classes, device=device)
+    extra_stitchers: dict[str, DeviceStitcher] = {}
     scene_info: dict[str, dict] = {}
     tiles_remaining: dict[str, int] = {}
+    crop_cms: dict[str, list] = {}
     # Pre-count tiles per scene so finished scenes can be finalized (and
     # freed) as soon as their last tile lands.
     for example in dataset.dataset:
@@ -190,7 +214,13 @@ def sliding_window_predict(
         )
         batches = device_prefetch(_host_flags(loader), device, size=2)
     for batch in batches:
+        if timed:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
         probs = predict_step(_to_model_layout(batch))
+        if timed:
+            events[1].record()
+            forward_events.append(events)
         metadata = batch["metadata"]
         batch_valid = batch["valid"]
 
@@ -203,6 +233,10 @@ def sliding_window_predict(
             key = f"{md['region_name']}/{_image_name(md['image_path'])}"
             by_scene.setdefault(key, []).append(i)
 
+        unnorm = None
+        if collect_extras:
+            # mean/std are [B, 1, 1, C]: broadcast over [B, H, W, C].
+            unnorm = batch["image"] * batch["std"] + batch["mean"]
         for key, idxs in by_scene.items():
             md0 = metadata[idxs[0]]
             cp0 = md0["crop_params"]
@@ -222,19 +256,39 @@ def sliding_window_predict(
                 [cp.height for cp in crops], [cp.width for cp in crops], tile_h, tile_w
             )
             sel = torch.as_tensor(idxs, device=probs.device)
+            tiles = probs.index_select(0, sel)
             pred_stitcher.add_batch(
-                key,
-                cp0.og_height,
-                cp0.og_width,
-                probs.index_select(0, sel),
-                offsets,
-                valid_mask,
+                key, cp0.og_height, cp0.og_width, tiles, offsets, valid_mask,
                 geo_from=md0["image_path"],
             )
+            if per_crop_ignore_index is not None:
+                mask = torch.from_numpy(valid_mask).to(device, non_blocking=True)
+                crop_cms.setdefault(key, []).append(confusion_from_preds(
+                    tiles.argmax(dim=-1), batch["target"].index_select(0, sel),
+                    n_classes, per_crop_ignore_index, mask, per_sample=True,
+                ))
+            if collect_extras:
+                if "rgb" not in extra_stitchers:
+                    extra_stitchers["rgb"] = DeviceStitcher(int(unnorm.shape[-1]), device=device)
+                    extra_stitchers["gt"] = DeviceStitcher(1, device=device)
+                extra_stitchers["rgb"].add_batch(
+                    key, cp0.og_height, cp0.og_width, unnorm.index_select(0, sel),
+                    offsets, valid_mask,
+                )
+                extra_stitchers["gt"].add_batch(
+                    key, cp0.og_height, cp0.og_width,
+                    batch["target"].index_select(0, sel).float()[..., None], offsets,
+                    valid_mask,
+                )
             tiles_remaining[key] -= len(idxs)
             if tiles_remaining[key] == 0:
                 result = dict(scene_info.pop(key))
                 result["probabilities"] = pred_stitcher.pop_combined(key)
+                if per_crop_ignore_index is not None:
+                    result["crop_confusions"] = torch.cat(crop_cms.pop(key)).cpu().numpy()
+                if collect_extras:
+                    result["rgb"] = extra_stitchers["rgb"].pop_combined(key)
+                    result["gt"] = extra_stitchers["gt"].pop_combined(key)[:, :, 0]
                 yield result
 
 

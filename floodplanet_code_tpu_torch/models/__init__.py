@@ -11,6 +11,7 @@ from floodplanet_code_tpu_torch.models.water_seg import (
     AUX_FEATURE_KEYS,
     MODELS,
     EarlyFusionModel,
+    LateFusionModel,
     WaterSegModel,
     build_model,
     resolve_conv_impl,
@@ -27,6 +28,7 @@ __all__ = [
     "AUX_FEATURE_KEYS",
     "MODELS",
     "EarlyFusionModel",
+    "LateFusionModel",
     "WaterSegModel",
     "build_model",
     "resolve_conv_impl",

@@ -5,8 +5,9 @@
   ``batch['image']``.
 - ``EarlyFusionModel`` <- ef_model.py:6-47: auxiliary rasters concatenated
   as extra input channels before a shared UNet.
-
-``LateFusionModel`` is not ported yet (ROADMAP.md Queue 1).
+- ``LateFusionModel``  <- lf_model.py:9-92: one UNetEncoder per modality,
+  level-wise feature concatenation fused by per-level 1x1 convs
+  (feat_fusion='concat_conv'), one shared UNetDecoder.
 
 Batches are dicts of NCHW tensors: ``image`` plus optional aux features in
 ``AUX_FEATURE_KEYS`` order. ``build_model`` returns a model in eval mode;
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from floodplanet_code_tpu_torch.device import resolve_device
-from floodplanet_code_tpu_torch.models.unet import UNet
+from floodplanet_code_tpu_torch.models.unet import UNet, UNetDecoder, UNetEncoder, _conv
 
 # Fixed aux-feature ordering (reference ef_model.py:28-44 checks in this order).
 AUX_FEATURE_KEYS = ("dem", "slope", "preflood", "pre_post_difference", "hand")
@@ -53,9 +54,72 @@ class EarlyFusionModel(nn.Module):
         return self.unet(x)
 
 
+class LateFusionModel(nn.Module):
+    """Per-modality encoders, level-wise concat + 1x1 fuse, one decoder.
+
+    ``in_channels`` (modality name -> channel count) fixes the encoder set,
+    in its order, like the reference's ModuleDict (lf_model.py:31-45); the
+    level-wise concatenation follows that order. Each modality is cast to
+    the compute dtype and laid out ``channels_last`` before its encoder, as
+    ``UNet.forward`` does for a single input. The 1x1 fusing convs carry a
+    bias and run in the compute dtype on f32 params (flax
+    ``nn.Conv(dtype=...)``); they stay plain convolutions, as the JAX
+    package computes them outside any Pallas kernel.
+    """
+
+    def __init__(
+        self,
+        in_channels: dict,
+        n_classes: int,
+        feat_fusion: str = "concat_conv",
+        base_feat_channels: int = 64,
+        dtype: torch.dtype = torch.float32,
+        align_corners: bool = False,
+        conv_impl: str = "xla",
+    ):
+        super().__init__()
+        if feat_fusion != "concat_conv":
+            raise NotImplementedError(
+                f'No fusion method "{feat_fusion}" (reference supports '
+                "concat_conv only, lf_model.py:88)"
+            )
+        self.dtype = dtype
+        self.encoders = nn.ModuleDict({
+            name: UNetEncoder(c, base_feat_channels, conv_impl)
+            for name, c in in_channels.items()
+        })
+        bfc = base_feat_channels
+        n = len(in_channels)
+        self.concat_convs = nn.ModuleList(
+            nn.Conv2d(c * n, c, 1) for c in (bfc, bfc * 2, bfc * 4, bfc * 8, bfc * 8)
+        )
+        self.decoder = UNetDecoder(n_classes, base_feat_channels, align_corners, conv_impl)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        modality_input = {"ms_image": batch["image"]}
+        for key in AUX_FEATURE_KEYS:
+            if batch.get(key) is not None:
+                modality_input[key] = batch[key]
+        pyramids = []
+        for name, encoder in self.encoders.items():
+            if name not in modality_input:
+                raise KeyError(
+                    f'Late-fusion modality "{name}" missing from batch '
+                    f"(has: {sorted(modality_input)})"
+                )
+            x = modality_input[name].to(self.dtype)
+            pyramids.append(encoder(x.contiguous(memory_format=torch.channels_last)))
+        fused = [
+            _conv(torch.cat([p[level] for p in pyramids], dim=1), conv)
+            for level, conv in enumerate(self.concat_convs)
+        ]
+        return self.decoder(fused)
+
+
 MODELS = {
     "ms_model": WaterSegModel,
     "ef_model": EarlyFusionModel,
+    "lf_model": LateFusionModel,
 }
 
 # JAX-package model options that compute the same function in every setting
@@ -81,8 +145,9 @@ def build_model(
 ) -> nn.Module:
     """Model factory: an eval-mode model with f32 params on ``device``.
 
-    ``in_channels`` is the dataset's modality -> channel-count dict; the
-    early-fusion model takes their sum. ``optimizer_name`` and the
+    ``in_channels`` is the dataset's modality -> channel-count dict: the
+    early-fusion model takes their sum, the late-fusion model one encoder
+    per entry, the plain model ``ms_image``. ``optimizer_name`` and the
     JAX-only implementation choices ``pool_impl``/``upsample_impl`` are
     accepted and ignored. Raises without a card unless ``device="cpu"``.
     """
@@ -99,13 +164,13 @@ def build_model(
         model_cls = MODELS[model_name]
     except KeyError:
         raise KeyError(
-            f'Model "{model_name}" not ported. Available: {sorted(MODELS)} '
-            "(lf_model: ROADMAP.md Queue 1)"
+            f'Model "{model_name}" not found. Available: {sorted(MODELS)}'
         )
-    n_in = (
-        sum(in_channels.values())
-        if model_cls is EarlyFusionModel
-        else in_channels["ms_image"]
-    )
+    if model_cls is LateFusionModel:
+        n_in = dict(in_channels)
+    elif model_cls is EarlyFusionModel:
+        n_in = sum(in_channels.values())
+    else:
+        n_in = in_channels["ms_image"]
     model = model_cls(n_in, n_classes, dtype=dtype, **model_kwargs)
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -20,25 +20,38 @@ def confusion_from_preds(
     n_classes: int,
     ignore_index: int | None = None,
     sample_weight: torch.Tensor | None = None,
+    per_sample: bool = False,
 ) -> torch.Tensor:
     """Confusion matrix [n_classes, n_classes] (rows=target, cols=pred).
 
     ``sample_weight``: optional 0/1 weight broadcastable to target (the
-    batch padding mask); weight 0 drops the pixel.
+    batch padding mask); weight 0 drops the pixel. ``per_sample``: one
+    matrix per entry of the leading axis, [B, n_classes, n_classes], from
+    the same single ``index_add_`` over (sample, target, pred) cells (the
+    JAX package vmaps the per-matrix function instead).
     """
     valid = torch.ones(target.shape, dtype=torch.float32, device=target.device)
     if sample_weight is not None:
         valid = valid * torch.broadcast_to(sample_weight, target.shape).float()
+    n_samples = int(target.shape[0]) if per_sample else 1
     preds, target, valid = preds.reshape(-1), target.reshape(-1), valid.reshape(-1)
     if ignore_index is not None:
         valid = valid * (target != ignore_index).float()
     valid = valid * ((target >= 0) & (target < n_classes)).float()
     t = target.clamp(0, n_classes - 1).long()
     p = preds.clamp(0, n_classes - 1).long()
+    index = t * n_classes + p
+    if per_sample:
+        per = target.numel() // max(n_samples, 1)
+        sample = torch.arange(target.numel(), device=target.device) // max(per, 1)
+        index = index + sample * (n_classes * n_classes)
     # Weighted counts of 0/1 weights are exact integers in f32 up to 2^24
     # pixels per cell.
-    cells = torch.zeros(n_classes * n_classes, dtype=torch.float32, device=valid.device)
-    cells.index_add_(0, t * n_classes + p, valid)
+    cells = torch.zeros(n_samples * n_classes * n_classes, dtype=torch.float32,
+                        device=valid.device)
+    cells.index_add_(0, index, valid)
+    if per_sample:
+        return cells.view(n_samples, n_classes, n_classes)
     return cells.view(n_classes, n_classes)
 
 

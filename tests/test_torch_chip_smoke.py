@@ -10,7 +10,12 @@ count no kernel launch:
   orders and types;
 - training: augmentation + train steps through the loader at batch 2 and a
   cut base width, the steps on one fixed batch, the evals before and after
-  the updates, the fused-vs-unfused eval and the f32 fused-vs-plain step.
+  the updates, the fused-vs-unfused eval and the f32 fused-vs-plain step;
+- fit: the fit CLI, a resume, a no-op re-run, the host loader and serving
+  the best checkpoint;
+- evaluation: ``predict`` (artifacts, per-crop stats, TTA, the unfused
+  comparison; late fusion on Sen1Floods11 through both input paths), the
+  HTTP daemon and ``batch_infer`` against ``infer``.
 """
 
 import torch
@@ -73,4 +78,19 @@ def test_fit_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert set(result["launches"].values()) == {0}
     assert result["epochs"] == [0, 1, 2, 3]
     assert result["steady_train_tiles_per_s"]["cache"] > 0
+    assert not (tmp_path / "work").exists()
+
+
+def test_evaluation_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "SCENES", [(150, 200), (100, 170)])
+    monkeypatch.setattr(chip_smoke, "EVAL_CHIPS", 2)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    result = chip_smoke.run_evaluation("cpu", device="cpu")
+    assert set(result["launches"].values()) == {0}
+    assert result["fused_vs_xla"]["argmax_agree"] == 1.0  # one code path on the CPU
+    assert result["late_fusion"]["max_dprob"] <= chip_smoke.PROB_TOL
+    assert result["predict"]["scenes"] == 2 and result["serve_s"]["warm"] > 0
     assert not (tmp_path / "work").exists()

@@ -19,7 +19,8 @@ import importlib, json, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
-                        shear_timing, run_training, cache_parity, run_fit, main)
+                        shear_timing, run_training, cache_parity, run_fit, run_evaluation,
+                        main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -58,6 +59,10 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.data.device_cache",
         "floodplanet_code_tpu_torch.utils.image",
         "floodplanet_code_tpu_torch.fit",
+        "floodplanet_code_tpu_torch.data.sen1floods11",
+        "floodplanet_code_tpu_torch.inference.predict",
+        "floodplanet_code_tpu_torch.inference.serve",
+        "floodplanet_code_tpu_torch.inference.batch_infer",
     ):
         assert expected in names
 
