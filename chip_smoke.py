@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, fit and evaluation paths on
-one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, fit, evaluation and
+model-tool paths on one NVIDIA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -73,12 +73,30 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    bit, the 400 and 404 replies; ``batch_infer`` over two roots, its masks
    equal to ``infer``'s; exact conv launches; the predict split (forward
    by CUDA events, loading + stitching, metrics, artifacts on the host
-   clock) and the daemon's cold and warm request seconds.
+   clock) and the daemon's cold and warm request seconds;
+11. model tools, on the full-width early-fusion model: ``run_crossval``'s
+   ``main`` over two folds of synthetic PlanetScope regions at the
+   reference recipe (300^2 crops, stride 150, Adam 1e-4, ignore_index -1)
+   with ``--soup``, cut to TOOLS_EPOCHS epochs of at most
+   TOOLS_LIMIT_TRAIN steps (each fold's best IoU held to its index, the
+   greedy soup at least its base and outside the index), and a second call
+   that skips both folds; ingredients re-scored on one model equal to fresh
+   models bit for bit, the soup checkpoint re-scored to its metrics, a
+   uniform soup; a second seed of fold A and the two-member ensemble
+   (members equal to their own evaluation, folds not mixed, fused vs cuDNN
+   <= 0.1% of pixels moved); ``export_model`` of fold A's best checkpoint
+   at the serving tile and batch, plain and with TTA, the loaded programs
+   against the live predict step (argmax equal, |dp| <= 1e-5) and timed
+   with CUDA events; the daemon on the artifact, its masks against
+   ``infer``'s; reference-schema checkpoints, early and late fusion,
+   through ``import_torch_checkpoint`` and ``infer``, fused vs cuDNN as in
+   the slice; exact conv launches.
 
-The last seven lines of standard output are the serving slice's numbers as
+The last eight lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
-JSON, the evaluation phase's numbers as JSON, the card's name and power
-limit, the ``kernels`` JSON line and the ``{"ok": true, ...}`` line.
+JSON, the evaluation phase's numbers as JSON, the model tools' numbers as
+JSON, the card's name and power limit, the ``kernels`` JSON line and the
+``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -121,6 +139,7 @@ from floodplanet_code_tpu_torch.inference import batch_infer as batch_infer_mod
 from floodplanet_code_tpu_torch.inference import predict as predict_mod
 from floodplanet_code_tpu_torch.inference import serve as serve_mod
 from floodplanet_code_tpu_torch.inference.infer import (
+    build_experiment_dataset,
     build_infer_dataset,
     infer,
     load_model_for_eval,
@@ -132,6 +151,13 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 from floodplanet_code_tpu_torch.models import build_model
 from floodplanet_code_tpu_torch.ops import LAUNCHES
 from floodplanet_code_tpu_torch.ops import conv_fused, rotate
+from floodplanet_code_tpu_torch.tools import (
+    eval_ensemble,
+    export_model,
+    import_torch_checkpoint,
+    run_crossval,
+    soup_checkpoints,
+)
 from floodplanet_code_tpu_torch.tools.import_jax_params import (
     save_weights,
     seeded_flax_variables,
@@ -143,6 +169,7 @@ from floodplanet_code_tpu_torch.train import (
     make_augment_step,
     make_eval_step,
     make_train_step,
+    resolve_ignore_index,
 )
 from floodplanet_code_tpu_torch.train import checkpoint as ckpt
 from floodplanet_code_tpu_torch.train.logging import log_image_panel, open_writer
@@ -220,6 +247,22 @@ PROB_TOL = 1e-6  # stitched probabilities, cache vs host path
 # event, the first event held out.
 EVAL_REGIONS = ("Bolivia", "Ghana", "Mekong")
 EVAL_CHIPS = 8
+
+# Model-tools phase: run_crossval's recipe (300^2 crops at stride 150,
+# Adam 1e-4, ignore_index -1, the default flips and rotation) over two
+# synthetic PlanetScope regions of two scenes each, cut to TOOLS_EPOCHS
+# epochs of at most TOOLS_LIMIT_TRAIN steps and TOOLS_LIMIT_VAL validation
+# batches (the soups and the ensemble score the whole validation split);
+# the export and the daemon at the serving phase's tile and batch.
+TOOLS_REGIONS = ("RegionA", "RegionB")
+TOOLS_SCENES = [(1200, 1500), (1250, 1530)]  # per region; the second ragged at 300^2
+TOOLS_CROP = 300
+TOOLS_BATCH = 8
+TOOLS_EPOCHS = 2
+TOOLS_LIMIT_TRAIN = 10
+TOOLS_LIMIT_VAL = 4
+EXPORT_DPROB_TOL = 1e-5  # exported program vs the live predict step
+MASK_AGREE_MIN = 0.9999  # artifact daemon vs infer, should the masks not be equal
 
 
 def log(msg: str) -> None:
@@ -427,12 +470,13 @@ def kernel_timing(card: str) -> list[dict]:
 # -- 5. the slice ------------------------------------------------------------
 
 
-def write_scenes(root: str, scenes=None, seed: int = 0, geo_from: str | None = None) -> None:
+def write_scenes(root: str, scenes=None, seed: int = 0, geo_from: str | None = None,
+                 region: str = "RegionA") -> None:
     """Synthetic CSDAP-layout PlanetScope scenes (uint16, 4 bands, stored
-    HWC) with labels, written by the port's TIFF writer (with the geo tags
-    of ``geo_from`` when given)."""
+    HWC) with labels in ``region``, written by the port's TIFF writer (with
+    the geo tags of ``geo_from`` when given)."""
     rng = np.random.default_rng(seed)
-    base = os.path.join(root, "CSDAP_complete", "RegionA")
+    base = os.path.join(root, "CSDAP_complete", region)
     os.makedirs(os.path.join(base, "labels"), exist_ok=True)
     os.makedirs(os.path.join(base, "PS"), exist_ok=True)
     for i, (h, w) in enumerate(SCENES if scenes is None else scenes):
@@ -1785,6 +1829,428 @@ def run_evaluation(card: str, device="cuda") -> dict:
     return out
 
 
+# -- 11. model tools: cross-validation, soups, ensembles, export, import --------
+
+
+def tools_overrides(data_root: str, *extra: str) -> list[str]:
+    """The phase's config on top of run_crossval's recipe: the data, the
+    crop (the recipe's own 300 on the card), the cuts and the model."""
+    return [f"dataset.dataset_kwargs.root_dir={data_root}", f"crop_height={TOOLS_CROP}",
+            f"crop_width={TOOLS_CROP}", f"crop_stride={TOOLS_CROP // 2}", "n_workers=8",
+            f"limit_train_batches={TOOLS_LIMIT_TRAIN}", f"limit_val_batches={TOOLS_LIMIT_VAL}",
+            "tpu.conv_impl=pallas_fused", "tpu.compute_dtype=bfloat16",
+            f"model.model_kwargs.base_feat_channels={BASE}", *extra]
+
+
+def fold_forwards(fold: dict, cfg: Config, n_valid_batches: int) -> int:
+    """Forwards of one run_fold: its train steps, validation batches and
+    image panels, and its greedy soup's evaluations (one per ingredient,
+    each over the whole validation split)."""
+    timing = fold["timing"]
+    steps = timing["train_tiles"] // TOOLS_BATCH
+    every = cfg.select("log_image_iter") or 0
+    n = steps + timing["n_epochs_run"] * min(TOOLS_LIMIT_VAL, n_valid_batches)
+    n += steps // every if every else 0
+    if "soup_checkpoint" in fold:
+        with open(os.path.join(fold["soup_checkpoint"], "soup.json")) as handle:
+            n += json.load(handle)["n_ingredients_available"] * n_valid_batches
+    return n
+
+
+def reference_state_dict(in_channels: dict, n_classes: int, seed: int,
+                         late_fusion: bool) -> dict:
+    """A state dict in the reference's own schema (its torch UNet under
+    the Lightning wrapper's ``model.``, or its late-fusion model's
+    ``encoders.<modality>``/``concat_convs``/``decoder``) at base width
+    BASE, from a seed: 3x3 convs with biases, BatchNorms with running
+    statistics and ``num_batches_tracked``, the 1x1 head."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.asarray(value, np.float32))
+
+    def double_conv(prefix, c_in, c_mid, c_out):
+        for conv, bn, (ci, co) in (("0", "1", (c_in, c_mid)), ("3", "4", (c_mid, c_out))):
+            put(f"{prefix}.{conv}.weight", rng.standard_normal((co, ci, 3, 3)) / np.sqrt(9 * ci))
+            put(f"{prefix}.{conv}.bias", 0.1 * rng.standard_normal(co))
+            put(f"{prefix}.{bn}.weight", rng.uniform(0.8, 1.2, co))
+            put(f"{prefix}.{bn}.bias", 0.1 * rng.standard_normal(co))
+            put(f"{prefix}.{bn}.running_mean", 0.1 * rng.standard_normal(co))
+            put(f"{prefix}.{bn}.running_var", rng.uniform(0.5, 1.5, co))
+            sd[f"{prefix}.{bn}.num_batches_tracked"] = torch.tensor(7)
+
+    def encoder(prefix, c_in):
+        double_conv(f"{prefix}inc.double_conv", c_in, BASE, BASE)
+        for i, (ci, co) in enumerate(((1, 2), (2, 4), (4, 8), (8, 8))):
+            double_conv(f"{prefix}down{i + 1}.maxpool_conv.1.double_conv", ci * BASE, co * BASE,
+                        co * BASE)
+
+    def decoder(prefix):
+        for i, (ci, co) in enumerate(((16, 4), (8, 2), (4, 1), (2, 1))):
+            double_conv(f"{prefix}up{i + 1}.conv.double_conv", ci * BASE, ci * BASE // 2,
+                        co * BASE)
+        put(f"{prefix}outc.conv.weight", rng.standard_normal((n_classes, BASE, 1, 1))
+            / np.sqrt(BASE))
+        put(f"{prefix}outc.conv.bias", 0.1 * rng.standard_normal(n_classes))
+
+    if not late_fusion:
+        encoder("model.", sum(in_channels.values()))
+        decoder("model.")
+        return sd
+    for modality, c in in_channels.items():
+        encoder(f"encoders.{modality}.", c)
+    for i, w in enumerate((1, 2, 4, 8, 8)):
+        c = w * BASE
+        put(f"concat_convs.{i}.weight", rng.standard_normal((c, c * len(in_channels), 1, 1))
+            / np.sqrt(c * len(in_channels)))
+        put(f"concat_convs.{i}.bias", 0.1 * rng.standard_normal(c))
+    decoder("decoder.")
+    return sd
+
+
+def archive_parts(path: str) -> dict:
+    """Uncompressed bytes of a ``.pt2`` archive by part (the directory
+    under the archive's root: weights and constants under ``data``, the
+    serialized program under ``models``)."""
+    import zipfile
+
+    parts: dict = {}
+    with zipfile.ZipFile(path) as archive:
+        for info in archive.infolist():
+            names = info.filename.split("/")
+            key = "/".join(names[1:3]) if len(names) > 3 else "/".join(names[1:])
+            parts[key] = parts.get(key, 0) + info.file_size
+    return dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6])
+
+
+@contextlib.contextmanager
+def ensemble_confusions(n_members: int):
+    """Within the block, keep the ensemble's confusion of every batch that
+    tools/eval_ensemble.py computes: per batch it calls
+    confusion_from_logits once per member, then once on the averaged
+    probabilities."""
+    kept, calls = [], [0]
+    original = eval_ensemble.confusion_from_logits
+
+    def confusion(*args, **kwargs):
+        cm = original(*args, **kwargs)
+        if calls[0] % (n_members + 1) == n_members:
+            kept.append(cm)
+        calls[0] += 1
+        return cm
+
+    eval_ensemble.confusion_from_logits = confusion
+    try:
+        yield kept
+    finally:
+        eval_ensemble.confusion_from_logits = original
+
+
+def run_tools(card: str, device="cuda") -> dict:
+    """Phase 11: the trained-model tools on the full-width early-fusion
+    UNet. ``device="cpu"`` rehearses it at a small size
+    (tests/test_torch_chip_smoke.py): no kernel launches and no device
+    timing then."""
+    on_card = torch.device(device).type == "cuda"
+    data_root, serve_root = os.path.join(WORK, "tools_data"), os.path.join(WORK, "tools_serve")
+    cv_dir, cv_seed1 = os.path.join(WORK, "cv"), os.path.join(WORK, "cv_seed1")
+    shutil.rmtree(WORK, ignore_errors=True)
+    with Phase("tools: write scenes"):
+        for k, region in enumerate(TOOLS_REGIONS):
+            write_scenes(data_root, TOOLS_SCENES, seed=10 + k, region=region)
+        write_scenes(serve_root, seed=12)
+    slices = generate_image_slice_object(TOOLS_CROP, TOOLS_CROP, TOOLS_CROP // 2)
+    n_valid = {r: len(build_dataset("floodplanet", "valid", slices, sensor="PS", channels="ALL",
+                                    root_dir=data_root, eval_region=r, ignore_index=-1,
+                                    seed_num=0)) for r in TOOLS_REGIONS}
+    nvb = {r: -(-n // TOOLS_BATCH) for r, n in n_valid.items()}
+    launches, forwards, seconds, out = {}, {}, {}, {}
+
+    def counted(name, fn, n_forwards):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        seconds[name] = time.perf_counter() - t0
+        forwards[name] = n_forwards
+        return result
+
+    # Cross-validation: both folds with --soup, then a second call that
+    # finds both recorded.
+    argv = ["--sensor", "PS", "--regions", *TOOLS_REGIONS, "--batch_size", str(TOOLS_BATCH),
+            "--n_epochs", str(TOOLS_EPOCHS), "--out_dir", cv_dir, "--soup",
+            "--device", str(device)]
+    argv += [a for o in tools_overrides(data_root) for a in ("--override", o)]
+    with Phase("tools: cross-validation, two folds with --soup"):
+        summary = counted("cv", lambda: run_crossval.main(argv), None)
+    folds = {f["region"]: f for f in summary["folds"]}
+    if tuple(folds) != TOOLS_REGIONS:
+        raise AssertionError(f"folds {list(folds)}, want {TOOLS_REGIONS}")
+    exps = {r: os.path.join(cv_dir, f"PS_{r}") for r in TOOLS_REGIONS}
+    forwards["cv"] = 0
+    for region, fold in folds.items():
+        with open(os.path.join(exps[region], "checkpoints", "index.json")) as handle:
+            entries = json.load(handle)["entries"]
+        best = max(entries, key=lambda e: e["metric"])
+        if (fold["best_val_iou"] != best["metric"] or fold["best_checkpoint"]
+                != os.path.join(exps[region], "checkpoints", best["name"])):
+            raise AssertionError(f"{region}: fold record {fold} vs the index's best {best}")
+        if not fold["soup_val_iou"] >= fold["soup_base_val_iou"]:
+            raise AssertionError(f"{region}: soup {fold['soup_val_iou']} below its base "
+                                 f"{fold['soup_base_val_iou']}")
+        if any(e["name"].startswith("soup-") for e in entries) or not os.path.isfile(
+                os.path.join(fold["soup_checkpoint"], ckpt.CHECKPOINT_FILE)):
+            raise AssertionError(f"{region}: the soup is in the index or missing")
+        forwards["cv"] += fold_forwards(fold, load_experiment_config(exps[region]),
+                                        nvb[region])
+    with Phase("tools: cross-validation again"):
+        if counted("cv again", lambda: run_crossval.main(argv), 0) != summary:
+            raise AssertionError("the second run_crossval call changed the results")
+    log(f"  cv: {[(r, f['best_val_iou'], f['soup_val_iou'], f['soup_n_ingredients']) for r, f in folds.items()]} "
+        f"(region, best val IoU, greedy soup, ingredients kept); fold walls "
+        f"{[f['wall_seconds'] for f in folds.values()]} s [{card}]")
+    out["cv"] = {r: {"wall_s": f["wall_seconds"], "best_val_iou": f["best_val_iou"],
+                     "best_epoch": f["best_epoch"], "soup_val_iou": f["soup_val_iou"],
+                     "soup_base_val_iou": f["soup_base_val_iou"],
+                     "soup_n_ingredients": f["soup_n_ingredients"],
+                     "steady_train_tiles_per_s": f["timing"]["steady_train_tiles_per_sec"],
+                     "fit_timing": {k: f["timing"][k] for k in (
+                         "fit_wall", "setup_wall", "train_wall", "eval_wall", "ckpt_wall")}}
+                 for r, f in folds.items()}
+    out["cv_s"] = seconds["cv"]
+
+    # The soup's weights: ingredients re-scored on one model equal fresh
+    # models' bit for bit (the eval pack cache re-packs on each load); the
+    # soup checkpoint reloads to its own metrics.
+    cfg_a = load_experiment_config(exps["RegionA"])
+    ds_a = build_experiment_dataset(cfg_a, "valid")
+    ignore = resolve_ignore_index(cfg_a.ignore_index, ds_a.n_classes)
+
+    def evaluator(path):
+        model = load_model_for_eval(cfg_a, path, ds_a, device)
+        return soup_checkpoints.make_val_evaluator(cfg_a, ds_a, model, ignore, device)
+
+    def weights_of(path):
+        return ckpt.eval_state_dict(ckpt.read_checkpoint(path))
+
+    with open(os.path.join(exps["RegionA"], "checkpoints", "index.json")) as handle:
+        entries = sorted(json.load(handle)["entries"], key=lambda e: -e["metric"])
+    ingredients = [os.path.join(exps["RegionA"], "checkpoints", e["name"]) for e in entries[:2]]
+    if len(ingredients) != 2:
+        raise AssertionError(f"fold A kept {len(entries)} checkpoints, want 2 ingredients")
+    soup_path = folds["RegionA"]["soup_checkpoint"]
+
+    def soup_weights():
+        shared = evaluator(ingredients[0])
+        for k in (0, 1, 0):
+            got, want = shared(weights_of(ingredients[k])), evaluator(ingredients[k])(
+                weights_of(ingredients[k]))
+            if got != want:
+                raise AssertionError(f"ingredient {k} re-scored on a shared model: {got}; on a "
+                                     f"fresh model: {want}")
+        with open(os.path.join(soup_path, "soup.json")) as handle:
+            recorded = json.load(handle)["soup_val_metrics"]
+        again = evaluator(soup_path)(weights_of(soup_path))
+        return max(abs(again[k] - v) for k, v in recorded.items())
+
+    with Phase("tools: the soup's weights"):
+        soup_err = counted("soup weights", soup_weights, 7 * nvb["RegionA"])
+    if not soup_err <= 1e-6:
+        raise AssertionError(f"the soup checkpoint re-scores {soup_err:.3e} off its metrics")
+    with Phase("tools: uniform soup of fold A"):
+        uniform = counted("soup uniform", lambda: soup_checkpoints.soup_experiment(
+            exps["RegionA"], mode="uniform", device=device), nvb["RegionA"])
+    out["soup"] = {"reload_max_err": soup_err, "uniform_val_iou": uniform["soup_val_iou"],
+                   "uniform_s": seconds["soup uniform"]}
+
+    # The ensemble: fold A again with seed 1, then both runs of fold A.
+    with Phase("tools: fold A with seed 1"):
+        seed1 = counted("fit seed 1", lambda: run_crossval.run_fold(
+            "PS", "RegionA", TOOLS_BATCH, cv_seed1, TOOLS_EPOCHS,
+            tools_overrides(data_root, "seed_num=1"), device=device), None)
+    forwards["fit seed 1"] = fold_forwards(seed1, cfg_a, nvb["RegionA"])
+    members = [exps["RegionA"], os.path.join(cv_seed1, "PS_RegionA")]
+    with Phase("tools: ensemble"), ensemble_confusions(2) as cms:
+        ens = counted("ensemble", lambda: eval_ensemble.evaluate_ensemble(members, device=device),
+                      2 * nvb["RegionA"])
+    alone = counted("ensemble members alone", lambda: [
+        evaluator(m["checkpoint"])(weights_of(m["checkpoint"]))[ckpt.MONITOR_KEY]
+        for m in ens["members"]], 2 * nvb["RegionA"])
+    if [m["iou"] for m in ens["members"]] != alone:
+        raise AssertionError(f"ensemble members {ens['members']} vs alone {alone}")
+    try:
+        eval_ensemble.evaluate_ensemble([exps["RegionA"], exps["RegionB"]], device=device)
+    except ValueError as exc:
+        if "different fold" not in str(exc):
+            raise
+    else:
+        raise AssertionError("an ensemble across folds was not refused")
+    xla_members = []
+    for exp in members:
+        cfg = load_experiment_config(exp)
+        cfg.tpu.conv_impl = "xla"
+        save_config(cfg, exp + "_xla")
+        os.symlink(os.path.join(exp, "checkpoints"), os.path.join(exp + "_xla", "checkpoints"))
+        xla_members.append(exp + "_xla")
+    with Phase("tools: ensemble, xla = unfused cuDNN"), ensemble_confusions(2) as cms_xla:
+        ens_xla = counted("ensemble xla", lambda: eval_ensemble.evaluate_ensemble(
+            xla_members, device=device), 0)
+    cm_f, cm_x = torch.stack(cms).sum(0).cpu(), torch.stack(cms_xla).sum(0).cpu()
+    moved = float((cm_f - cm_x).abs().sum() / 2 / cm_f.sum())
+    log(f"  ensemble of fold A's seeds 0 and 1: IoU {ens['ensemble_iou']:.4f}, members "
+        f"{alone}; fused vs xla: {moved:.3e} of the pixels in other confusion cells, xla "
+        f"IoU {ens_xla['ensemble_iou']:.4f} [{card}]")
+    if moved > 1e-3:
+        raise AssertionError(f"fused and unfused ensembles disagree on {moved:.3e} of pixels")
+    out["ensemble"] = {"ensemble_iou": ens["ensemble_iou"], "member_iou": alone,
+                       "xla_ensemble_iou": ens_xla["ensemble_iou"], "confusion_moved": moved,
+                       "seconds": seconds["ensemble"], "xla_seconds": seconds["ensemble xla"]}
+
+    # Export of fold A's best checkpoint at the serving tile and batch; the
+    # loaded program against the live predict step.
+    best_a = folds["RegionA"]["best_checkpoint"]
+    manifests = {}
+    for tta in (False, True):
+        with Phase(f"tools: export (tta={tta})"):
+            manifests[tta] = counted(f"export tta={tta}", lambda: export_model.export_checkpoint(
+                best_a, os.path.join(WORK, "tools_export", f"model_tta{int(tta)}"),
+                batch_size=BATCH, height=TILE, width=TILE, tta=tta, device=device), 0)
+    live_model = load_model_for_eval(cfg_a, best_a, ds_a, device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.rand(BATCH, TILE, TILE, 4, generator=gen, device=device)
+    out["export"] = {}
+    for tta in (False, True):
+        with Phase(f"tools: exported program (tta={tta})"):
+            call = export_model.load_exported(manifests[tta]["artifact"])
+            live = make_predict_step(live_model, tta)
+            n = 8 if tta else 1
+            got = counted(f"exported forward tta={tta}", lambda: call({"image": x}), n)
+            want = counted(f"live forward tta={tta}", lambda: live({"image": x.permute(0, 3, 1, 2)}),
+                           n)
+        dprob = float((got - want).abs().max())
+        argmax_equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        row = {"max_dprob": dprob, "argmax_equal": argmax_equal,
+               "export_s": seconds[f"export tta={tta}"], "bytes": manifests[tta]["bytes"],
+               "archive_bytes": archive_parts(manifests[tta]["artifact"])}
+        if on_card:
+            row["exported_ms"] = cuda_ms(lambda: call({"image": x}), 5)
+            row["live_ms"] = cuda_ms(lambda: live({"image": x.permute(0, 3, 1, 2)}), 5)
+        log(f"  exported vs live predict step (tta={tta}): max |dp| {dprob:.3e}, argmax equal "
+            f"{argmax_equal}; {row} [{card}]")
+        if not (argmax_equal and dprob <= EXPORT_DPROB_TOL):
+            raise AssertionError(f"the exported program disagrees with the live step (tta={tta})")
+        out["export"][f"tta={tta}"] = row
+
+    # The daemon on the plain artifact against infer from the checkpoint at
+    # the same tile and batch.
+    cfg_ref = load_experiment_config(exps["RegionA"])
+    cfg_ref.eval_region = None
+    cfg_ref.crop_height = cfg_ref.crop_width = TILE
+    cfg_ref.tpu.inference_batch_size = BATCH
+    ds_serve = build_infer_dataset(cfg_ref, "floodplanet", "all", root_dir=serve_root)
+    n_req = -(-len(ds_serve) // BATCH)
+    want = counted("infer reference", lambda: read_masks(infer(
+        cfg_ref, best_a, "floodplanet", "all", os.path.join(WORK, "tools_infer"),
+        dataset=ds_serve, device=device)), n_req)
+    server = serve_mod.serve(artifact_path=manifests[False]["artifact"], host="127.0.0.1",
+                             port=0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with Phase("tools: serve the artifact"):
+            status, health = http(url + "/healthz")
+            if status != 200 or health["artifact"] != manifests[False]["artifact"] or \
+                    health["checkpoint"] is not None:
+                raise AssertionError(f"/healthz: {status} {health}")
+            status, reply = counted("serve artifact", lambda: http(url + "/infer", {
+                "root": serve_root, "save_dir": os.path.join(WORK, "tools_serve_out")}), n_req)
+            if status != 200:
+                raise AssertionError(f"/infer: {status} {reply}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    got = read_masks(reply["written"])
+    if got.keys() != want.keys() or not got:
+        raise AssertionError(f"artifact daemon: masks {sorted(got)} != {sorted(want)}")
+    equal = all(np.array_equal(got[k], m) for k, m in want.items())
+    agree = float(np.mean(np.concatenate([(got[k] == m).ravel() for k, m in want.items()])))
+    log(f"  artifact daemon: {len(ds_serve)} tiles, {seconds['serve artifact']:.2f} s, masks "
+        f"equal to infer's: {equal} (pixel agreement {agree}) [{card}]")
+    if not equal and agree < MASK_AGREE_MIN:
+        raise AssertionError(f"artifact daemon masks agree with infer's on {agree:.6f}")
+    out["serve_artifact"] = {"seconds": seconds["serve artifact"], "tiles": len(ds_serve),
+                             "masks_equal": equal, "pixel_agreement": agree}
+
+    # Reference-schema checkpoints, early and late fusion, imported and
+    # served; the fused model against the unfused one on the serving root.
+    out["import"] = {}
+    for kind, late in (("ef", False), ("lf", True)):
+        src = os.path.join(WORK, f"reference_{kind}",
+                           "model-epoch=07-val_MulticlassJaccardIndex=0.5000.ckpt")
+        os.makedirs(os.path.dirname(src))
+        torch.save({"state_dict": reference_state_dict({"ms_image": 4}, 3, 20 + late, late)},
+                   src)
+        exp_i = os.path.join(WORK, f"imported_{kind}")
+        with Phase(f"tools: import a reference checkpoint ({kind})"):
+            entry = counted(f"import {kind}", lambda: import_torch_checkpoint.import_checkpoint(
+                src, exp_i, sensor="PS", device=device, overrides=[
+                    f"dataset.dataset_kwargs.root_dir={serve_root}", f"crop_height={TILE}",
+                    f"crop_width={TILE}", f"tpu.inference_batch_size={BATCH}", "n_workers=8",
+                    "tpu.conv_impl=pallas_fused", "tpu.compute_dtype=bfloat16",
+                    f"model.model_kwargs.base_feat_channels={BASE}"]), 0)
+            cfg_i = load_experiment_config(exp_i)
+            ds_i = build_infer_dataset(cfg_i, "floodplanet", "all")
+            n_i = -(-len(ds_i) // BATCH)
+            paths = counted(f"infer imported {kind}", lambda: infer(
+                cfg_i, entry, "floodplanet", "all", os.path.join(WORK, f"imported_{kind}_masks"),
+                dataset=ds_i, device=device), n_i)
+            check_masks(paths)
+        cfg_x = load_experiment_config(exp_i)
+        cfg_x.tpu.conv_impl = "xla"
+        probs = {}
+        for name, c in (("fused", cfg_i), ("xla", cfg_x)):
+            model = load_model_for_eval(c, entry, ds_i, device)
+            probs[name] = counted(f"imported {kind} {name}", lambda: {
+                s["image_name"]: s["probabilities"] for s in sliding_window_predict(
+                    model, ds_i, BATCH, n_workers=8, device=device)},
+                n_i if name == "fused" else 0)
+        fused, unfused = probs["fused"], probs["xla"]
+        same = np.concatenate([(fused[k].argmax(-1) == unfused[k].argmax(-1)).ravel()
+                               for k in fused])
+        # Unlike the serving seeds, which predict one class, the seeded
+        # late-fusion model splits its pixels among the classes, and some
+        # of them sit within bf16 rounding of a tie. The argmax is held to
+        # 99.9% on the pixels whose unfused top two are more than
+        # 2*DPROB_TOL apart (decided), the probabilities everywhere.
+        top2 = np.concatenate([np.sort(unfused[k], -1)[..., -2:].reshape(-1, 2)
+                               for k in unfused])
+        decided = top2[:, 1] - top2[:, 0] > 2 * DPROB_TOL
+        agree, agree_decided = float(same.mean()), float(same[decided].mean())
+        dprob = max(float(np.abs(fused[k] - unfused[k]).max()) for k in fused)
+        log(f"  imported {kind}: fused vs xla argmax agreement {agree:.6f} ({agree_decided:.6f} "
+            f"on the {decided.mean():.4%} of pixels decided by more than {2 * DPROB_TOL}), "
+            f"max |dp| {dprob:.3e}")
+        if not (decided.any() and agree_decided >= 0.999 and dprob <= DPROB_TOL):
+            raise AssertionError(f"imported {kind}: fused and unfused disagree")
+        out["import"][kind] = {"argmax_agree": agree, "argmax_agree_decided": agree_decided,
+                               "decided_share": float(decided.mean()), "max_dprob": dprob,
+                               "model": cfg_i.model.name}
+
+    expected = {k: (9 * v if on_card else 0) for k, v in forwards.items()}
+    log(f"  conv launches {launches} for forwards {forwards}")
+    if launches != expected:
+        raise AssertionError(f"expected conv launches {expected}, got {launches}")
+    out["launches"] = launches
+    out["seconds"] = seconds
+    shutil.rmtree(WORK, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1816,6 +2282,8 @@ def main() -> int:
         fit = run_fit(card)
     with Phase("evaluation"):
         evaluation = run_evaluation(card)
+    with Phase("model tools"):
+        tools = run_tools(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -1830,14 +2298,19 @@ def main() -> int:
         # The main paths: serving (9 per forward), training (9 per
         # train-step forward and per fused eval forward), the fit loop (9
         # per train step, validation batch and image panel, and per serving
-        # forward from its best checkpoint) and evaluation (9 per forward
-        # of predict, the daemon and batch_infer; none on the cuDNN run).
+        # forward from its best checkpoint), evaluation (9 per forward of
+        # predict, the daemon and batch_infer; none on the cuDNN run) and
+        # the model tools (9 per forward of the CV fits and validation, the
+        # soups, the ensemble, the exported programs, the artifact daemon
+        # and the imported models; none on the cuDNN runs).
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
-                     + sum(fit["launches"].values()) + sum(evaluation["launches"].values())),
+                     + sum(fit["launches"].values()) + sum(evaluation["launches"].values())
+                     + sum(tools["launches"].values())),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
                              "fit": sum(fit["launches"].values()),
-                             "evaluation": sum(evaluation["launches"].values())},
+                             "evaluation": sum(evaluation["launches"].values()),
+                             "tools": sum(tools["launches"].values())},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -1878,6 +2351,7 @@ def main() -> int:
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(json.dumps({"fit": fit}))
     log(json.dumps({"evaluation": evaluation}))
+    log(json.dumps({"tools": tools}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ one dropped or padded. ``build_device_cache`` returns None, after one line
 saying why, when the padded stacks exceed the byte budget or a scene has
 no label raster; the caller then uses the host loader. Any other error
 raises. The JAX package's pod-sharded stacks and builder wait for more
-than one device (ROADMAP.md Queue 1 item 5).
+than one device (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -28,7 +28,6 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
 from floodplanet_code_tpu_torch.config import load_experiment_config
 from floodplanet_code_tpu_torch.data import build_dataset, generate_image_slice_object
@@ -38,9 +37,9 @@ from floodplanet_code_tpu_torch.inference.sliding import (
     resolve_inference_batch_size,
     sliding_window_predict,
 )
-from floodplanet_code_tpu_torch.models import build_model, resolve_conv_impl
+from floodplanet_code_tpu_torch.models import build_model, resolve_compute_dtype, resolve_conv_impl
 from floodplanet_code_tpu_torch.tools.import_jax_params import load_weights
-from floodplanet_code_tpu_torch.train.checkpoint import read_checkpoint
+from floodplanet_code_tpu_torch.train.checkpoint import eval_state_dict, read_checkpoint
 
 
 def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
@@ -48,25 +47,17 @@ def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
     into it (``strict=True``): a checkpoint directory of ``fit_model``
     (with its ``ema_params`` in place of the parameters when it has them)
     or a weights file. Returns the eval-mode model."""
-    compute_dtype = {
-        "bfloat16": torch.bfloat16,
-        "float32": torch.float32,
-    }[cfg.select("tpu.compute_dtype", "bfloat16")]
     model = build_model(
         cfg.model.name,
         dataset.n_channels,
         dataset.n_classes,
-        dtype=compute_dtype,
+        dtype=resolve_compute_dtype(cfg),
         device=device,
         conv_impl=resolve_conv_impl(cfg),
         **(cfg.model.get("model_kwargs") or {}),
     )
     if os.path.isdir(weights_path):
-        payload = read_checkpoint(weights_path)
-        state_dict = dict(payload["model"])
-        # EMA-trained checkpoints evaluate with the averaged weights, the
-        # ones validation selected them by.
-        state_dict.update(payload.get("ema_params") or {})
+        state_dict = eval_state_dict(read_checkpoint(weights_path))
     else:
         state_dict = load_weights(weights_path)
     model.load_state_dict(state_dict, strict=True)
@@ -77,6 +68,25 @@ def model_key(dataset) -> tuple:
     """What a warm model depends on in a dataset: its modality -> channel
     counts (a dict, made hashable) and its class count."""
     return tuple(sorted(dataset.n_channels.items())), int(dataset.n_classes)
+
+
+def build_experiment_dataset(cfg, split: str, dataset_name: str | None = None):
+    """The experiment's ``split`` tiled as its training was (the config's
+    crops at its stride), for the tools that score a fold: soups,
+    ensembles, the export's channel and class count."""
+    return build_dataset(
+        dataset_name or cfg.dataset.name,
+        split,
+        generate_image_slice_object(cfg.crop_height, cfg.crop_width, cfg.crop_stride),
+        sensor=cfg.dataset.sensor,
+        channels=cfg.dataset.channels,
+        norm_mode=cfg.norm_mode,
+        eval_region=cfg.eval_region,
+        ignore_index=cfg.ignore_index,
+        seed_num=cfg.select("seed_num"),
+        train_split_pct=cfg.select("train_split_pct", 0.8),
+        **(cfg.dataset.get("dataset_kwargs") or {}),
+    )
 
 
 def build_infer_dataset(cfg, dataset_name: str, split: str, eval_region=None,
@@ -120,21 +130,24 @@ def infer(
     warm=None,
     dataset=None,
     device="cuda",
+    predict_step=None,
 ) -> list[str]:
     """Run inference and export masks; returns the written mask paths.
 
     ``tta``: dihedral test-time augmentation (8 forwards per tile).
     ``warm``: a model already on ``device`` from an earlier call (then
     ``weights_path`` is not read) — a server keeps one model across
-    requests. ``dataset``: a pre-built dataset for the same cfg/split
-    (see ``build_infer_dataset``). Raises without a card unless
-    ``device="cpu"``.
+    requests. ``predict_step``: a step to run instead of a model's (an
+    exported program, tools/export_model.py; see
+    ``sliding_window_predict``): no model is loaded. ``dataset``: a
+    pre-built dataset for the same cfg/split (see ``build_infer_dataset``).
+    Raises without a card unless ``device="cpu"``.
     """
     device = resolve_device(device)
     if dataset is None:
         dataset = build_infer_dataset(cfg, dataset_name, split, eval_region)
     model = warm
-    if model is None:
+    if model is None and predict_step is None:
         model = load_model_for_eval(cfg, weights_path, dataset, device)
 
     written = []
@@ -146,6 +159,7 @@ def infer(
         device=device,
         tta=tta,
         device_data_bytes=int(cfg.select("tpu.device_data_bytes", 6 << 30) or 0),
+        predict_step=predict_step,
     ):
         probs = scene["probabilities"]
         # argmax -> clip to binary water mask (reference infer.py:179-181):

@@ -25,8 +25,18 @@ the batch CLI writes them (georeferenced uint8 GeoTIFFs). Status codes:
 400 for a body that is not JSON or lacks ``root``, 404 for an unknown path
 or a root that does not exist, 500 with the exception's text otherwise.
 
-The JAX package also serves an AOT StableHLO export (``artifact_path``);
-its port waits for ``tools/export_model.py`` (ROADMAP.md Queue 1 item 6).
+Two sources, exactly one of which must be given:
+- ``checkpoint_path``: restore the model and run its predict step;
+- ``artifact_path``: a program exported by ``tools/export_model.py``
+  (``<out>.pt2`` beside its ``<out>.json`` manifest): the frozen predict
+  step runs as it is, with the weights inside. TTA and the batch and tile
+  shape were fixed at export time; the manifest records them, the requests
+  are run at that shape and every batch is checked against it. The
+  experiment (config, default save directory) is the manifest's
+  ``checkpoint``'s.
+
+    python -m floodplanet_code_tpu_torch.inference.serve --artifact <out>.pt2 \\
+        [--port 8765] [--device cpu]
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from floodplanet_code_tpu_torch.inference.infer import (
     load_model_for_eval,
     model_key,
 )
+from floodplanet_code_tpu_torch.tools.export_model import ARTIFACT_SUFFIX, load_exported
 
 
 class InferenceService:
@@ -61,30 +72,45 @@ class InferenceService:
         artifact_path: str | None = None,
         device="cuda",
     ):
-        if artifact_path is not None:
-            raise NotImplementedError(
-                "serving an exported artifact waits for the port of "
-                "tools/export_model.py (ROADMAP.md Queue 1 item 6); serve a "
-                "checkpoint instead"
-            )
-        if checkpoint_path is None:
-            raise ValueError("give checkpoint_path")
+        if (checkpoint_path is None) == (artifact_path is None):
+            raise ValueError("give exactly one of checkpoint_path / artifact_path")
         self.device = resolve_device(device)
         self.checkpoint_path = checkpoint_path
-        self.artifact_path = None
+        self.artifact_path = artifact_path
+        self.manifest = None
+        source = checkpoint_path
+        if artifact_path is not None:
+            base = os.path.normpath(artifact_path).removesuffix(ARTIFACT_SUFFIX)
+            with open(base + ".json") as handle:
+                self.manifest = json.load(handle)
+            if tta and not self.manifest["tta"]:
+                raise ValueError(
+                    "--tta requested but this artifact was exported with tta=false; "
+                    "TTA is baked in at export time"
+                )
+            tta = bool(self.manifest["tta"])
+            # The artifact may live anywhere (--out); its experiment dir
+            # comes from the recorded checkpoint provenance.
+            source = self.manifest["checkpoint"]
         self.tta = tta
-        self.experiment_dir = os.path.dirname(os.path.dirname(os.path.normpath(checkpoint_path)))
+        self.experiment_dir = os.path.dirname(os.path.dirname(os.path.normpath(source)))
         self.cfg = load_experiment_config(self.experiment_dir)
         self._lock = threading.Lock()  # one request on the card at a time
-        self._warm = None  # the model, on self.device
+        # The model on self.device, or the artifact's checked predict step.
+        self._warm = None
         self._warm_key = None  # model_key() of the dataset it was built for
 
     def _warm_model(self, dataset):
-        """Load the checkpoint once per (channels, classes) shape."""
+        """Load the checkpoint, or the artifact, once per (channels,
+        classes) shape."""
         key = model_key(dataset)
         if self._warm is None or self._warm_key != key:
-            self._warm = load_model_for_eval(self.cfg, self.checkpoint_path, dataset,
-                                             self.device)
+            if self.artifact_path is not None:
+                self._warm = _artifact_step(load_exported(self.artifact_path),
+                                            self.manifest["inputs"])
+            else:
+                self._warm = load_model_for_eval(self.cfg, self.checkpoint_path, dataset,
+                                                 self.device)
             self._warm_key = key
         return self._warm
 
@@ -106,9 +132,19 @@ class InferenceService:
             run_cfg = copy.deepcopy(self.cfg)
             # A request names a whole root: no held-out region applies.
             run_cfg.eval_region = None
+            if self.manifest is not None:
+                # The artifact's batch and tile are frozen: tile and batch
+                # exactly so (tpu.inference_batch_size too, which infer()
+                # prefers over batch_size).
+                shape = self.manifest["inputs"]["image"]["shape"]
+                run_cfg.batch_size = int(shape[0])
+                run_cfg.crop_height, run_cfg.crop_width = int(shape[1]), int(shape[2])
+                run_cfg.tpu["inference_batch_size"] = int(shape[0])
             # The probe is infer()'s own dataset (non-overlapping tiles over
             # this root); it also decides the model's shape.
             probe = build_infer_dataset(run_cfg, dataset_name, split, root_dir=root)
+            warm = self._warm_model(probe)
+            artifact = self.artifact_path is not None
             written = infer(
                 run_cfg,
                 self.checkpoint_path,
@@ -116,7 +152,8 @@ class InferenceService:
                 split,
                 save_dir,
                 tta=self.tta,
-                warm=self._warm_model(probe),
+                warm=None if artifact else warm,
+                predict_step=warm if artifact else None,
                 dataset=probe,
                 device=self.device,
             )
@@ -129,6 +166,27 @@ class InferenceService:
     @property
     def model_loaded(self) -> bool:
         return self._warm is not None
+
+
+def _artifact_step(call, inputs: dict):
+    """The predict step over an exported program: the NCHW views
+    ``sliding_window_predict`` passes go back to the program's NHWC inputs,
+    each held to the manifest's shape first."""
+
+    def step(batch: dict):
+        feed = {}
+        for name, spec in inputs.items():
+            value = batch[name].permute(0, 2, 3, 1)
+            got = list(value.shape)
+            if got != spec["shape"]:
+                raise ValueError(
+                    f"artifact expects {name} {spec['shape']}, request produced {got} — "
+                    "re-export with matching batch/tile shape"
+                )
+            feed[name] = value
+        return call(feed)
+
+    return step
 
 
 def make_handler(service: InferenceService):
@@ -218,8 +276,8 @@ def main(argv=None):
         "--artifact",
         type=str,
         default=None,
-        help="Serve an exported artifact instead of a checkpoint (not ported "
-        "yet: raises).",
+        help="Serve a program exported by tools/export_model.py (<out>.pt2, its "
+        "manifest beside it) instead of a checkpoint.",
     )
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
@@ -232,9 +290,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     server = serve(args.checkpoint_path, args.host, args.port, tta=args.tta,
                    artifact_path=args.artifact, device=args.device)
+    source = (f"artifact {args.artifact}" if args.artifact
+              else f"checkpoint {args.checkpoint_path}")
     print(
         f"[serve] listening on http://{args.host}:{server.server_address[1]} "
-        f"(checkpoint {args.checkpoint_path}, device {server.service.device})",
+        f"({source}, device {server.service.device})",
         flush=True,
     )
     try:

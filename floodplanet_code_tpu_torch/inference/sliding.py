@@ -72,7 +72,7 @@ def _d4_invert(x: torch.Tensor, t: bool, fh: bool, fw: bool) -> torch.Tensor:
     return x
 
 
-def make_predict_step(model, tta: bool = False) -> Callable:
+def predict_probs(model, batch: dict, tta: bool = False) -> torch.Tensor:
     """Forward -> softmax probabilities [B, H, W, n_classes] (f32).
 
     ``batch``: a dict of NCHW tensors on the model's device (``image`` plus
@@ -80,25 +80,31 @@ def make_predict_step(model, tta: bool = False) -> Callable:
     dihedral transforms of the input (4 flip-only ones for non-square
     tiles), each inverted exactly back to canvas orientation.
     """
+    model_batch = {"image": batch["image"]}
+    for key in AUX_FEATURE_KEYS:
+        if key in batch:
+            model_batch[key] = batch[key]
+    if not tta:
+        probs = torch.softmax(model(model_batch), dim=1)
+    else:
+        shape = model_batch["image"].shape
+        elements = _d4_elements(square=shape[2] == shape[3])
+        probs = None
+        for t, fh, fw in elements:
+            tb = {k: _d4_apply(v, t, fh, fw) for k, v in model_batch.items()}
+            p = _d4_invert(torch.softmax(model(tb), dim=1), t, fh, fw)
+            probs = p if probs is None else probs + p
+        probs = probs / len(elements)
+    return probs.permute(0, 2, 3, 1)
+
+
+def make_predict_step(model, tta: bool = False) -> Callable:
+    """``predict_step(batch) -> predict_probs(model, batch, tta)`` under
+    inference mode."""
 
     @torch.inference_mode()
     def predict_step(batch: dict) -> torch.Tensor:
-        model_batch = {"image": batch["image"]}
-        for key in AUX_FEATURE_KEYS:
-            if key in batch:
-                model_batch[key] = batch[key]
-        if not tta:
-            probs = torch.softmax(model(model_batch), dim=1)
-        else:
-            shape = model_batch["image"].shape
-            elements = _d4_elements(square=shape[2] == shape[3])
-            probs = None
-            for t, fh, fw in elements:
-                tb = {k: _d4_apply(v, t, fh, fw) for k, v in model_batch.items()}
-                p = _d4_invert(torch.softmax(model(tb), dim=1), t, fh, fw)
-                probs = p if probs is None else probs + p
-            probs = probs / len(elements)
-        return probs.permute(0, 2, 3, 1)
+        return predict_probs(model, batch, tta)
 
     return predict_step
 
@@ -159,6 +165,7 @@ def sliding_window_predict(
     collect_extras: bool = False,
     per_crop_ignore_index: int | None = None,
     forward_events: list | None = None,
+    predict_step: Callable | None = None,
 ) -> Iterator[dict]:
     """Run tiled inference over a dataset; yield per-scene results.
 
@@ -178,11 +185,15 @@ def sliding_window_predict(
     ``device_data_bytes``: the HBM scene cache's budget (0 = host loader).
     ``forward_events``: a list that receives one (start, end) pair of CUDA
     events around each batch's forward, for a caller that times the
-    forward on the device without a sync per batch. Raises without a card
-    unless ``device="cpu"``.
+    forward on the device without a sync per batch. ``predict_step``: run
+    this (NCHW batch dict -> [B, H, W, n_classes] probabilities; an
+    exported program, tools/export_model.py) instead of
+    ``make_predict_step(model, tta)``; ``model`` and ``tta`` are then not
+    read. Raises without a card unless ``device="cpu"``.
     """
     device = resolve_device(device)
-    predict_step = make_predict_step(model, tta=tta)
+    if predict_step is None:
+        predict_step = make_predict_step(model, tta=tta)
     timed = forward_events is not None and device.type == "cuda"
 
     n_classes = dataset.n_classes

@@ -14,6 +14,7 @@ from floodplanet_code_tpu_torch.models.water_seg import (
     LateFusionModel,
     WaterSegModel,
     build_model,
+    resolve_compute_dtype,
     resolve_conv_impl,
 )
 
@@ -31,5 +32,6 @@ __all__ = [
     "LateFusionModel",
     "WaterSegModel",
     "build_model",
+    "resolve_compute_dtype",
     "resolve_conv_impl",
 ]

@@ -139,6 +139,21 @@ class DoubleConv(nn.Module):
         self.conv1 = nn.Conv2d(mid, out_channels, 3, padding=1, bias=False)
         self.bn1 = BatchNormReLU(out_channels)
         self._fused = (None, None)  # (key, (a, b, packed)), see _fused_operands
+        self._frozen = False  # see freeze_fused_operands
+
+    def freeze_fused_operands(self, dtype: torch.dtype) -> None:
+        """Fold BN_0 and pack the fused op's operands for activations of
+        ``dtype`` once, from the weights loaded now, into non-persistent
+        buffers that every later forward uses (eval mode only). A traced
+        program (tools/export_model.py) carries them as constants, as the
+        JAX export carries its weights; tracing cannot read ``_pack_key``'s
+        storage pointers and versions. The weights must not change after."""
+        a, b = self.bn0.fold()
+        ap, bp, wp = pack(a, b, self.conv1.weight, dtype)
+        for name, t in (("frozen_a", a), ("frozen_b", b), ("frozen_ap", ap),
+                        ("frozen_bp", bp), ("frozen_wp", wp)):
+            self.register_buffer(name, t.detach().clone(), persistent=False)
+        self._frozen = True
 
     def _pack_key(self, y: torch.Tensor) -> tuple:
         """What the packed operands depend on: y's dtype, the tensors'
@@ -156,7 +171,13 @@ class DoubleConv(nn.Module):
         statistics, packed per call. On a card under inference mode they are
         kept until a parameter or running statistic changes (``_pack_key``):
         a serving model folds and lays out its weights once, not per
-        forward."""
+        forward. Frozen operands (``freeze_fused_operands``) win."""
+        if self._frozen:
+            if self.bn0.training or y.dtype != self.frozen_ap.dtype:
+                raise RuntimeError(f"operands frozen for eval-mode {self.frozen_ap.dtype} "
+                                   f"activations, got {y.dtype} in "
+                                   f"{'train' if self.bn0.training else 'eval'} mode")
+            return self.frozen_a, self.frozen_b, (self.frozen_ap, self.frozen_bp, self.frozen_wp)
         if self.bn0.training:
             a, b = self.bn0.batch_affine(y)
             return a, b, None

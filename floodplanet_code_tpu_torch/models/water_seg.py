@@ -135,6 +135,12 @@ def resolve_conv_impl(cfg) -> str:
     return cfg.select("tpu.conv_impl", "xla")
 
 
+def resolve_compute_dtype(cfg) -> torch.dtype:
+    """The model's compute dtype from ``tpu.compute_dtype`` (bf16 default)."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        cfg.select("tpu.compute_dtype", "bfloat16")]
+
+
 def build_model(
     model_name: str,
     in_channels: dict,

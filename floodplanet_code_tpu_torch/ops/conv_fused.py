@@ -7,8 +7,10 @@ memory, the second conv's kernel applies it to each input tile as it loads
 it (``csrc/conv_fused.cu``, a hand-written CUDA kernel for ``sm_90a``).
 SAME padding applies to ``z``: taps outside the image add 0, not relu(b).
 
-- ``relu_affine_conv3x3``: the op. On a CUDA tensor it launches the kernel
-  (a build or launch error raises); on a CPU tensor it runs
+- ``relu_affine_conv3x3``: the op, registered as the custom op
+  ``floodplanet::relu_affine_conv3x3`` with a fake implementation, so that
+  ``torch.export`` traces it. On a CUDA tensor it launches the kernel (a
+  build or launch error raises); on a CPU tensor it runs
   ``relu_affine_conv3x3_plain``. Its backward recomputes ``z`` and
   differentiates the plain version, as the JAX package's custom VJP does.
 - ``relu_affine_conv3x3_plain``: the same function in plain PyTorch, in
@@ -208,35 +210,55 @@ def relu_affine_conv3x3_cuda(y, a, b, w, packed=None):
     return out
 
 
-class _ReluAffineConv3x3(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, y, a, b, w, packed):
-        ctx.save_for_backward(y, a, b, w)
-        if y.is_cuda:
-            return relu_affine_conv3x3_cuda(y, a, b, w, packed)
-        if y.device.type == "cpu":
-            return relu_affine_conv3x3_plain(y, a, b, w)
-        raise ValueError(f"no {KERNEL} for device {y.device}")
+# The op as a torch.library custom op, so that torch.export can carry it
+# into a program (tools/export_model.py): the kernel's ctypes launch cannot
+# be traced, the fake implementation below stands in for it. ``ap``, ``bp``
+# and ``wp`` are ``pack``'s operands, all three or none.
+@torch.library.custom_op(
+    f"floodplanet::{KERNEL}", mutates_args=(), device_types="cuda",
+    schema="(Tensor y, Tensor a, Tensor b, Tensor w, Tensor? ap=None, Tensor? bp=None, "
+           "Tensor? wp=None) -> Tensor",
+)
+def _op(y, a, b, w, ap=None, bp=None, wp=None):
+    return relu_affine_conv3x3_cuda(y, a, b, w, None if ap is None else (ap, bp, wp))
 
-    @staticmethod
-    def backward(ctx, grad):
-        # Recompute z and differentiate the unfused chain (the JAX
-        # package's _bwd, conv_fused.py:228-234): the same expression the
-        # kernel evaluates, so gradients equal the unfused path's.
-        saved = ctx.saved_tensors
-        inputs = [
-            t.detach().requires_grad_(need)
-            for t, need in zip(saved, ctx.needs_input_grad)
-        ]
-        wanted = [t for t in inputs if t.requires_grad]
-        if not wanted:
-            return (None,) * 5
+
+@_op.register_kernel("cpu")
+def _op_cpu(y, a, b, w, ap=None, bp=None, wp=None):
+    # channels_last, as the kernel and the fake return it; a no-op for the
+    # model's activations, which are channels_last already.
+    return relu_affine_conv3x3_plain(y, a, b, w).contiguous(memory_format=torch.channels_last)
+
+
+@_op.register_fake
+def _op_fake(y, a, b, w, ap=None, bp=None, wp=None):
+    _check(y, a, b, w)
+    return y.new_empty((y.shape[0], w.shape[0], *y.shape[2:])).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _op_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _op_backward(ctx, grad):
+    # Recompute z and differentiate the unfused chain (the JAX package's
+    # _bwd, conv_fused.py:228-234): the same expression the kernel
+    # evaluates, so gradients equal the unfused path's. The packed operands
+    # get none.
+    saved = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(())
+    if wanted:
         with torch.enable_grad():
             out = relu_affine_conv3x3_plain(*inputs)
-            grads = iter(
-                torch.autograd.grad(out, wanted, grad.to(saved[0].dtype))
-            )
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+            grads = iter(torch.autograd.grad(out, wanted, grad.to(saved[0].dtype)))
+    return (*(next(grads) if t.requires_grad else None for t in inputs),
+            *(None,) * (len(ctx.needs_input_grad) - len(inputs)))
+
+
+_op.register_autograd(_op_backward, setup_context=_op_setup)
 
 
 def relu_affine_conv3x3(y, a, b, w, packed=None):
@@ -244,7 +266,8 @@ def relu_affine_conv3x3(y, a, b, w, packed=None):
 
     y: [B,C1,H,W] in the compute dtype; a, b: [C1] (the folded BN apply,
     f32); w: [C2,C1,3,3] f32 params; ``packed``: the kernel's operands from
-    ``pack`` (made per call when None). Returns [B,C2,H,W] in y's dtype. A
-    CUDA tensor runs the kernel, a CPU tensor the plain version.
+    ``pack`` (made per call when None). Returns [B,C2,H,W] channels_last in
+    y's dtype. A CUDA tensor runs the kernel, a CPU tensor the plain
+    version; the op is ``torch.ops.floodplanet.relu_affine_conv3x3``.
     """
-    return _ReluAffineConv3x3.apply(y, a, b, w, packed)
+    return _op(y, a, b, w, *(packed if packed is not None else (None, None, None)))

@@ -15,7 +15,7 @@ A slim entry (a top-k epoch that is not a resume point) leaves out
 "optimizer" and carries ``slim_checkpoint.json``. ``index.json`` lists the
 kept entries and the latest full one. Tensors are written from host copies.
 Saving from more than one process waits for more than one device
-(ROADMAP.md Queue 1 item 5).
+(ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -285,6 +285,15 @@ def read_checkpoint(path: str) -> dict:
     """The payload of a checkpoint directory, tensors on the CPU."""
     return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
                       weights_only=True)
+
+
+def eval_state_dict(payload: dict) -> dict:
+    """The state dict evaluation loads from a checkpoint payload: the
+    model's, with its ``ema_params`` in place of the parameters when it has
+    them (the weights validation selected an EMA-trained run by)."""
+    state = dict(payload["model"])
+    state.update(payload.get("ema_params") or {})
+    return state
 
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:

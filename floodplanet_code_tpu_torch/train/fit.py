@@ -48,7 +48,11 @@ from floodplanet_code_tpu_torch.data.device_cache import (
     cache_batches,
 )
 from floodplanet_code_tpu_torch.device import resolve_device
-from floodplanet_code_tpu_torch.models import build_model, resolve_conv_impl
+from floodplanet_code_tpu_torch.models import (
+    build_model,
+    resolve_compute_dtype,
+    resolve_conv_impl,
+)
 from floodplanet_code_tpu_torch.models.water_seg import AUX_FEATURE_KEYS
 from floodplanet_code_tpu_torch.ops.losses import (
     cross_entropy_ignore,
@@ -246,7 +250,7 @@ def default_experiment_dir(cfg: Config) -> str:
 def _check_single_device(cfg) -> None:
     """Raise NotImplementedError for the settings that need more than one
     device or process, which the port has not reached yet."""
-    later = "needs more than one device, not ported yet (ROADMAP.md Queue 1 item 5)"
+    later = "needs more than one device, not ported yet (ROADMAP.md Queue 1 item 4)"
     n_devices = cfg.select("tpu.n_devices")
     if n_devices is not None and int(n_devices) > 1:
         raise NotImplementedError(f"tpu.n_devices={n_devices} {later}")
@@ -334,7 +338,7 @@ def fit_model(
         cfg.model.name,
         train_dataset.n_channels,
         n_classes,
-        dtype={"bfloat16": torch.bfloat16, "float32": torch.float32}[compute_dtype],
+        dtype=resolve_compute_dtype(cfg),
         device=device,
         conv_impl=resolve_conv_impl(cfg),
         **(cfg.model.get("model_kwargs") or {}),

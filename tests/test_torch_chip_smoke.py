@@ -15,7 +15,12 @@ count no kernel launch:
   the best checkpoint;
 - evaluation: ``predict`` (artifacts, per-crop stats, TTA, the unfused
   comparison; late fusion on Sen1Floods11 through both input paths), the
-  HTTP daemon and ``batch_infer`` against ``infer``.
+  HTTP daemon and ``batch_infer`` against ``infer``;
+- model tools: the two-fold cross-validation with ``--soup`` and its
+  re-run, the soup's re-scoring checks, the ensemble of two seeds (and
+  across folds, refused), the export with and without TTA against the live
+  step, the daemon on the artifact, and reference-schema checkpoints
+  imported and served.
 """
 
 import torch
@@ -93,4 +98,25 @@ def test_evaluation_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result["fused_vs_xla"]["argmax_agree"] == 1.0  # one code path on the CPU
     assert result["late_fusion"]["max_dprob"] <= chip_smoke.PROB_TOL
     assert result["predict"]["scenes"] == 2 and result["serve_s"]["warm"] > 0
+    assert not (tmp_path / "work").exists()
+
+
+def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "SCENES", [(150, 200), (100, 170)])
+    monkeypatch.setattr(chip_smoke, "TOOLS_SCENES", [(150, 200), (130, 170)])
+    monkeypatch.setattr(chip_smoke, "TOOLS_CROP", 64)
+    monkeypatch.setattr(chip_smoke, "TOOLS_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TOOLS_LIMIT_TRAIN", 2)
+    monkeypatch.setattr(chip_smoke, "TOOLS_LIMIT_VAL", 2)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    result = chip_smoke.run_tools("cpu", device="cpu")
+    assert set(result["launches"].values()) == {0}
+    assert set(result["cv"]) == {"RegionA", "RegionB"}
+    assert result["ensemble"]["confusion_moved"] == 0.0  # one code path on the CPU
+    assert result["serve_artifact"]["masks_equal"]
+    assert all(r["max_dprob"] == 0.0 and r["argmax_equal"] for r in result["export"].values())
+    assert set(result["import"]) == {"ef", "lf"}
     assert not (tmp_path / "work").exists()

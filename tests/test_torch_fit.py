@@ -172,7 +172,7 @@ def test_finished_experiment_returns_at_once(synthetic_csdap_root, tmp_path, cap
 ])
 def test_multi_device_configs_raise(synthetic_csdap_root, tmp_path, override):
     cfg = compose(overrides=_overrides(synthetic_csdap_root, override))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         fit_model(cfg, overwrite_exp_dir=str(tmp_path / "exp"), device="cpu")
     assert not os.path.exists(tmp_path / "exp")
 

@@ -20,7 +20,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
                         shear_timing, run_training, cache_parity, run_fit, run_evaluation,
-                        main)
+                        run_tools, main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -63,6 +63,12 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.inference.predict",
         "floodplanet_code_tpu_torch.inference.serve",
         "floodplanet_code_tpu_torch.inference.batch_infer",
+        "floodplanet_code_tpu_torch.tools.summarize_crossval",
+        "floodplanet_code_tpu_torch.tools.soup_checkpoints",
+        "floodplanet_code_tpu_torch.tools.eval_ensemble",
+        "floodplanet_code_tpu_torch.tools.run_crossval",
+        "floodplanet_code_tpu_torch.tools.export_model",
+        "floodplanet_code_tpu_torch.tools.import_torch_checkpoint",
     ):
         assert expected in names
 

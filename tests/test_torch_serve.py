@@ -6,7 +6,9 @@ Both keep one model warm across requests or roots and must write, for
 every root, exactly the masks a cold ``infer`` call writes for it. The
 daemon answers as the JAX package's does: 200 with the written paths, 400
 for a body that is not JSON or lacks ``root``, 404 for an unknown path or
-root, 500 with the exception's text.
+root, 500 with the exception's text. On a program exported by
+tools/export_model.py (``artifact_path``) it runs at the program's frozen
+batch and tile and writes the masks ``infer`` writes from the checkpoint.
 """
 
 import json
@@ -25,6 +27,7 @@ from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference import batch_infer, infer as infer_mod, serve
 from floodplanet_code_tpu_torch.inference.infer import build_infer_dataset, infer
 from floodplanet_code_tpu_torch.models import build_model
+from floodplanet_code_tpu_torch.tools import export_model
 from floodplanet_code_tpu_torch.tools.import_jax_params import (
     seeded_flax_variables,
     state_dict_from_flax,
@@ -158,7 +161,80 @@ def test_entry_points_need_a_card_unless_cpu(setup, monkeypatch):
         batch_infer.batch_infer(setup["entry"], "floodplanet", setup["roots"])
 
 
-def test_artifact_serving_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        serve.serve(artifact_path=os.path.join(setup["exp"], "export", "model"), port=0,
-                    device="cpu")
+@pytest.fixture(scope="module")
+def artifacts(setup):
+    """The entry exported at the daemon's batch and tile (8, 32^2), with and
+    without TTA, to a directory outside the experiment. The export reads
+    the channels and classes from a dataset found through dataset_dirs.json
+    in the working directory."""
+    with open(setup["base"] / "dataset_dirs.json", "w") as handle:
+        json.dump({"floodplanet": setup["roots"][0]}, handle)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(setup["base"])
+        return {tta: export_model.export_checkpoint(
+            setup["entry"], str(setup["base"] / "anywhere" / f"model_tta{int(tta)}"),
+            batch_size=8, tta=tta, device="cpu") for tta in (False, True)}
+
+
+@pytest.mark.parametrize("tta", [False, True], ids=["plain", "tta"])
+def test_artifact_daemon_serves_infers_masks(setup, artifacts, tta):
+    """The daemon on an exported program: no checkpoint is read, and its
+    masks equal a cold ``infer``'s from the checkpoint at the same batch and
+    tile."""
+    manifest = artifacts[tta]
+    server = serve.serve(artifact_path=manifest["artifact"], port=0, device="cpu")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, health = _call(url + "/healthz")
+        assert status == 200 and health["artifact"] == manifest["artifact"]
+        assert health["checkpoint"] is None and health["model_loaded"] is False
+        assert server.service.tta is tta
+        assert server.service.experiment_dir == setup["exp"]
+        root = setup["roots"][1]
+        cfg = load_experiment_config(setup["exp"])
+        cfg.eval_region = None
+        ds = build_infer_dataset(cfg, "floodplanet", "all", root_dir=root)
+        want = _read(infer(cfg, setup["entry"], "floodplanet", "all",
+                           str(setup["base"] / f"cold_art{int(tta)}"), dataset=ds, tta=tta,
+                           device="cpu"))
+        status, reply = _call(url + "/infer", {"root": root,
+                                               "save_dir": str(setup["base"] / f"art{int(tta)}")})
+        assert status == 200, reply
+        _same(_read(reply["written"]), want)
+        # The default save directory is the manifest's experiment's.
+        status, reply = _call(url + "/infer", {"root": root})
+        assert status == 200 and all(p.startswith(os.path.join(setup["exp"], "serve_inference"))
+                                     for p in reply["written"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def test_artifact_service_checks_its_sources(setup, artifacts):
+    with pytest.raises(ValueError, match="exactly one"):
+        serve.InferenceService(device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        serve.InferenceService(setup["entry"], artifact_path=artifacts[False]["artifact"],
+                               device="cpu")
+    with pytest.raises(ValueError, match="--tta requested"):
+        serve.InferenceService(artifact_path=artifacts[False]["artifact"], tta=True,
+                               device="cpu")
+    # TTA comes from the artifact; the manifest is found without the suffix.
+    service = serve.InferenceService(artifact_path=artifacts[True]["artifact"][:-4],
+                                     device="cpu")
+    assert service.tta is True
+
+
+def test_artifact_refuses_other_shapes(setup, artifacts):
+    service = serve.InferenceService(artifact_path=artifacts[False]["artifact"], device="cpu")
+    cfg = load_experiment_config(setup["exp"])
+    step = service._warm_model(build_infer_dataset(cfg, "floodplanet", "all",
+                                                   root_dir=setup["roots"][0]))
+    ok = torch.zeros(8, 32, 32, 4)
+    assert step({"image": ok.permute(0, 3, 1, 2)}).shape == (8, 32, 32, 3)
+    with pytest.raises(ValueError, match=r"artifact expects image \[8, 32, 32, 4\], request "
+                                         r"produced \[4, 32, 32, 4\]"):
+        step({"image": torch.zeros(4, 4, 32, 32)})
