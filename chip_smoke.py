@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, fit, evaluation and
-model-tool paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, fit, evaluation,
+model-tool and data-tool paths on one NVIDIA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -90,13 +90,26 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    with CUDA events; the daemon on the artifact, its masks against
    ``infer``'s; reference-schema checkpoints, early and late fusion,
    through ``import_torch_checkpoint`` and ``infer``, fused vs cuDNN as in
-   the slice; exact conv launches.
+   the slice; exact conv launches;
+12. data tools and options, with no hand-written kernel on any path (0
+   launches of either): ``compute_norm_params`` over the serving scenes,
+   the scene cache against the loader with ``norm_mode=global`` and fits
+   through both; a fit at DATA_CROP non-square crops rotated by
+   map_coordinates, one such augment step on the card against the CPU,
+   and map_coordinates against the roll shear at 512^2; ``fused_bn=false``
+   (under pallas_fused, the fused pair off) against ``fused_bn=true`` on the
+   same weights, the bf16 eval forward and an f32 train step; fits with
+   ``tpu.debug_nans`` off, on and off again (the losses) and on a poisoned
+   batch (``FloatingPointError`` at the step); ``visualize_transforms`` on
+   the card, ``generate_dataset_visualizations``, ``compute_feature_stats``,
+   ``delete_failed_experiments --dry_run`` over the phase's experiments, and
+   the example transformer on the card against the CPU.
 
-The last eight lines of standard output are the serving slice's numbers as
+The last nine lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
 JSON, the evaluation phase's numbers as JSON, the model tools' numbers as
-JSON, the card's name and power limit, the ``kernels`` JSON line and the
-``{"ok": true, ...}`` line.
+JSON, the data tools' numbers as JSON, the card's name and power limit, the
+``kernels`` JSON line and the ``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -112,6 +125,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -126,6 +140,7 @@ from floodplanet_code_tpu_torch.data import (
     generate_image_slice_object,
 )
 from floodplanet_code_tpu_torch.data.augment import (
+    AugmentDraws,
     TransformParams,
     apply_augmentation,
     draw_augmentation,
@@ -151,12 +166,18 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 from floodplanet_code_tpu_torch.models import build_model
 from floodplanet_code_tpu_torch.ops import LAUNCHES
 from floodplanet_code_tpu_torch.ops import conv_fused, rotate
+from floodplanet_code_tpu_torch.models.example_transformer import ExampleTileTransformer
 from floodplanet_code_tpu_torch.tools import (
+    compute_feature_stats,
+    compute_norm_params,
+    delete_failed_experiments,
     eval_ensemble,
     export_model,
+    generate_dataset_visualizations,
     import_torch_checkpoint,
     run_crossval,
     soup_checkpoints,
+    test_image_transforms,
 )
 from floodplanet_code_tpu_torch.tools.import_jax_params import (
     save_weights,
@@ -172,6 +193,7 @@ from floodplanet_code_tpu_torch.train import (
     resolve_ignore_index,
 )
 from floodplanet_code_tpu_torch.train import checkpoint as ckpt
+from floodplanet_code_tpu_torch.train import fit as train_fit
 from floodplanet_code_tpu_torch.train.logging import log_image_panel, open_writer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -263,6 +285,20 @@ TOOLS_LIMIT_TRAIN = 10
 TOOLS_LIMIT_VAL = 4
 EXPORT_DPROB_TOL = 1e-5  # exported program vs the live predict step
 MASK_AGREE_MIN = 0.9999  # artifact daemon vs infer, should the masks not be equal
+
+# Data-tools phase: the serving phase's scenes through fits with the
+# config's default conv_impl (xla), each cut to DATA_EPOCHS epochs of at
+# most DATA_LIMIT_TRAIN steps and DATA_LIMIT_VAL validation batches, at the
+# training phase's batch; non-square crops at DATA_CROP (H, W); the
+# poisoned debug_nans fit gets its NaN at NAN_AT (epoch, train step); the
+# example transformer at TRANSFORMER on TILE^2 tiles, batch TRAIN_BATCH.
+DATA_EPOCHS = 2
+DATA_LIMIT_TRAIN = 4
+DATA_LIMIT_VAL = 2
+DATA_CROP = (384, 512)
+NAN_AT = (0, 2)
+TRANSFORMER = {"d_model": 128, "n_layers": 2, "patch": 16}
+AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0, 1]
 
 
 def log(msg: str) -> None:
@@ -851,6 +887,13 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def grad_rels(ga: dict, gb: dict) -> dict:
+    """Per tensor: (max |ga-gb| / max|gb|, ||ga-gb|| / ||gb||)."""
+    return {n: ((ga[n] - gb[n]).abs().max().item() / max(gb[n].abs().max().item(), 1e-30),
+                ((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)).item())
+            for n in gb}
+
+
 def f32_step_check(card: str, eval_batch: dict, device) -> dict:
     """One f32 train step at batch F32_BATCH from the same weights and the
     same draws: the fused model with the kernel shear against the unfused
@@ -896,13 +939,6 @@ def f32_step_check(card: str, eval_batch: dict, device) -> dict:
     (lf, gf, bf, mf), (lx, gx, bx, mx) = out["fused"], out["xla"]
     l64, g64, _, m64 = out["f64"]
     loss_rel = _rel(lf, lx)
-
-    def grad_rels(ga, gb):
-        """Per tensor: (max |ga-gb| / max|gb|, ||ga-gb|| / ||gb||)."""
-        return {n: ((ga[n] - gb[n]).abs().max().item() / max(gb[n].abs().max().item(), 1e-30),
-                    ((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)).item())
-                for n in gb}
-
     rels, noise = grad_rels(gf, gx), grad_rels(out["xla again"][1], gx)
     to64 = {"fused": grad_rels(gf, g64), "xla": grad_rels(gx, g64)}
 
@@ -1158,14 +1194,15 @@ def run_training(card: str, device="cuda") -> dict:
 # -- 9. the fit loop -----------------------------------------------------------
 
 
-def cache_parity(ds, device) -> dict:
+def cache_parity(ds, device, norms=(None, "local")) -> dict:
     """Every batch of one shuffled epoch from the scene cache against the
-    loader's at the same indices: bit-identical with norm_mode null, within
-    LOCAL_TOL·max|ref| with local. Returns the worst local errors."""
+    loader's at the same indices, for each of ``norms``: bit-identical with
+    norm_mode null, within LOCAL_TOL·max|ref| with local or global. Returns
+    the worst errors of the last normalized mode."""
     worst = {}
     order = np.random.default_rng((0, 0)).permutation(len(ds))
     loader = BatchLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, n_workers=8)
-    for norm in (None, "local"):
+    for norm in norms:
         ds.norm_mode = norm
         cache = build_device_cache(ds, 6 << 30, device)
         build = make_batch_builder(cache)
@@ -1182,7 +1219,7 @@ def cache_parity(ds, device) -> dict:
                     raise AssertionError(f"cache {key} differs from the loader's ({norm}): {err:.3e}")
                 if rel > LOCAL_TOL:
                     raise AssertionError(f"cache {key} off by {rel:.3e}·max|ref| ({norm})")
-                if norm == "local":
+                if norm is not None:
                     worst[key] = max(worst.get(key, 0.0), rel)
         log(f"  cache vs loader, norm {norm}: {len(loader)} batches of {TRAIN_BATCH}, "
             f"{'bit-identical' if norm is None else f'worst rel {worst}'}")
@@ -2251,6 +2288,371 @@ def run_tools(card: str, device="cuda") -> dict:
     return out
 
 
+# -- 12. data tools and options ---------------------------------------------
+
+
+def data_overrides(data_root: str, exp: str, *extra: str) -> list[str]:
+    return [
+        "dataset.sensor=PS", f"dataset.dataset_kwargs.root_dir={data_root}",
+        f"crop_height={TILE}", f"crop_width={TILE}", f"crop_stride={TILE}",
+        f"batch_size={TRAIN_BATCH}", "n_workers=8", f"n_epochs={DATA_EPOCHS}",
+        f"limit_train_batches={DATA_LIMIT_TRAIN}", f"limit_val_batches={DATA_LIMIT_VAL}",
+        "save_topk_models=1", "tpu.compute_dtype=bfloat16",
+        f"model.model_kwargs.base_feat_channels={BASE}", f"run.dir={exp}", *extra,
+    ]
+
+
+@contextlib.contextmanager
+def poisoned_train_steps(at: tuple[int, int]):
+    """Within the block, the fit's train step number ``at[1]`` of epoch
+    ``at[0]`` (each epoch DATA_LIMIT_TRAIN steps) gets a NaN pixel in its
+    (augmented) image."""
+    make = train_fit.make_train_step
+    target_call = at[0] * DATA_LIMIT_TRAIN + at[1]
+
+    def making(*args, **kwargs):
+        step = make(*args, **kwargs)
+        calls = [0]
+
+        def poisoned(state, batch, generator=None):
+            if calls[0] == target_call:
+                batch = dict(batch)
+                batch["image"] = batch["image"].clone()
+                batch["image"][0, 7, 11, 0] = float("nan")
+            calls[0] += 1
+            return step(state, batch, generator)
+
+        return poisoned
+
+    train_fit.make_train_step = making
+    try:
+        yield
+    finally:
+        train_fit.make_train_step = make
+
+
+def loss_gap(a: list, b: list) -> float:
+    """Largest relative difference between two fits' per-epoch losses."""
+    return max(_rel(x, y) for p, q in zip(a, b) for x, y in zip(p["losses"], q["losses"]))
+
+
+def step_grads(model, sd, batch: dict):
+    """One Adam step of ``model`` from ``sd`` on ``batch`` (no
+    augmentation): (the loss, the gradients, a call that takes one more
+    step, for timing)."""
+    state = create_train_state(model, sd, 1e-4)
+    step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                           fuse_augmentation=False)
+    _, logs = step(state, batch)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return logs["loss"].item(), grads, (lambda: step(state, batch))
+
+
+def gif_sizes(paths: list[str]) -> list[tuple]:
+    from PIL import Image
+
+    sizes = []
+    for path in paths:
+        with Image.open(path) as gif:
+            sizes.append((gif.size, gif.n_frames))
+    return sizes
+
+
+def run_data_tools(card: str, device="cuda") -> dict:
+    """Phase 12: the offline data tools and the single-device options on the
+    full-width early-fusion UNet, with no hand-written kernel on any of its
+    paths (each must count 0 launches). ``device="cpu"`` rehearses it at a
+    small size (tests/test_torch_chip_smoke.py): no device timing then."""
+    on_card = torch.device(device).type == "cuda"
+    data_root = os.path.join(WORK, "data_tools_data")
+    outputs = os.path.join(WORK, "data_tools_outputs")
+    runs = os.path.join(outputs, "phase12")  # <outputs>/<group>/<experiment>
+    norm_path = os.path.join(WORK, "data_tools_norm.json")
+    shutil.rmtree(WORK, ignore_errors=True)
+    with Phase("data tools: write scenes"):
+        write_scenes(data_root, seed=13)
+    cli = ["--device", str(device)]
+    launches, seconds, out = {}, {}, {}
+
+    def counted(name, fn):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        launches[name] = {k: LAUNCHES[k] for k in (conv_fused.KERNEL, rotate.KERNEL)}  # ends
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    # 1. Global normalization: the parameters, the cache against the loader,
+    # and fits through both.
+    with Phase("data tools: compute_norm_params"):
+        params = counted("compute_norm_params", lambda: compute_norm_params.main(
+            ["--sensor", "PS", "--root_dir", data_root, "--pct_sample", "1.0",
+             "--out", norm_path]))
+    if not (params["n_scenes"] == len(SCENES) and all(s > 0 for s in params["std"])):
+        raise AssertionError(f"norm params {params}")
+    slices = generate_image_slice_object(TILE, TILE, stride=TILE)
+    ds = build_dataset("floodplanet", "train", slices, sensor="PS", channels="ALL",
+                       root_dir=data_root, ignore_index=0, seed_num=0, train_split_pct=0.8,
+                       norm_mode="global", norm_param_path=norm_path)
+    with Phase("data tools: cache parity, norm_mode global"):
+        global_worst = counted("cache parity global", lambda: cache_parity(ds, device, ("global",)))
+    global_norm = ["norm_mode=global", f"dataset.dataset_kwargs.norm_param_path={norm_path}"]
+    fits = {}
+    for name, extra in (("global cache", []), ("global host", ["tpu.device_data_bytes=0"])):
+        exp = os.path.join(runs, name.replace(" ", "_"))
+        with Phase(f"data tools: fit, {name}"), watch_checkpoints() as (saves, _):
+            counted(f"fit {name}", lambda: fit_cli.main(
+                cli + data_overrides(data_root, exp, *global_norm, *extra)))
+        fits[name] = saves
+    out["global_norm"] = {"mean": params["mean"], "std": params["std"],
+                          "n_pixels": params["n_pixels"], "cache_parity_rel": global_worst,
+                          "losses": {k: [s["losses"] for s in v] for k, v in fits.items()}}
+
+    # 2. Non-square crops: a fit through the cache, rotating by
+    # map_coordinates; one augment step on the card against the CPU on the
+    # same batch and draws; map_coordinates against the roll shear.
+    ch, cw = DATA_CROP
+    exp = os.path.join(runs, "non_square")
+    with Phase(f"data tools: fit at {ch}x{cw} crops"), watch_checkpoints() as (saves, _), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        counted("fit non-square", lambda: fit_cli.main(cli + data_overrides(
+            data_root, exp, f"crop_height={ch}", f"crop_width={cw}", f"crop_stride={ch}")))
+    said = [str(w.message) for w in caught if f"non-square crops {ch}x{cw}" in str(w.message)]
+    if not said or len(saves) != DATA_EPOCHS:
+        raise AssertionError(f"the {ch}x{cw} fit: {len(saves)} epochs, warnings {said[:1]}")
+    for s in saves:
+        if not all(math.isfinite(v) for v in s["losses"]):
+            raise AssertionError(f"non-finite loss in the {ch}x{cw} fit: {s}")
+    ds_ns = build_dataset("floodplanet", "train", generate_image_slice_object(ch, cw, stride=ch),
+                          sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0,
+                          seed_num=0, train_split_pct=0.8)
+    cache = build_device_cache(ds_ns, 6 << 30, device)
+    batch = make_batch_builder(cache)(cache.index_rows(ds_ns, range(TRAIN_BATCH)))
+    tp = TransformParams(dtype="bfloat16")  # the fit's: p = 0.5, bf16 ignored here
+    gen = torch.Generator(device=device).manual_seed(5)
+    draws = draw_augmentation(gen, TRAIN_BATCH, tp, device)
+    img, tgt = counted("augment non-square", lambda: apply_augmentation(
+        batch["image"], batch["target"], draws, tp, 0))
+    cpu_draws = AugmentDraws(**{f.name: getattr(draws, f.name).cpu()
+                                for f in dataclasses.fields(draws)})
+    img_cpu, tgt_cpu = apply_augmentation(batch["image"].cpu(), batch["target"].cpu(),
+                                          cpu_draws, tp, 0)
+    aug_err = float((img.cpu() - img_cpu).abs().max())
+    label_differ = float((tgt.cpu() != tgt_cpu).float().mean())
+    log(f"  map_coordinates at {ch}x{cw}, batch {TRAIN_BATCH} ({int(draws.do_r.sum())} "
+        f"rotated): card vs CPU max |d image| {aug_err:.3e}, labels differ on "
+        f"{label_differ:.3e} of pixels [{card}]")
+    if not (img.dtype == torch.float32 and aug_err <= AUG_TOL and label_differ <= 1e-3):
+        raise AssertionError("map_coordinates rotation: the card disagrees with the CPU")
+    out["non_square"] = {"crop": [ch, cw], "losses": [s["losses"] for s in saves],
+                         "augment_max_abs_err": aug_err, "label_differ": label_differ,
+                         "rotated": int(draws.do_r.sum())}
+    if on_card:
+        x = torch.rand(TRAIN_BATCH, TILE, TILE, 4, generator=gen, device=device)
+        t = torch.randint(0, 3, (TRAIN_BATCH, TILE, TILE), generator=gen, device=device,
+                          dtype=torch.int32)
+        every = TransformParams(rotate_likelihood=1.0, dtype="bfloat16")
+        d = draw_augmentation(gen, TRAIN_BATCH, every, device)
+        ms = {}
+        for name, p in (("roll_shear", every), ("map_coordinates",
+                                                dataclasses.replace(every, rotate_impl="map_coordinates")),
+                        ("roll_shear again", every)):
+            ms[name] = cuda_ms(lambda: apply_augmentation(x, t, d, p, 0), 10)
+        log(f"  augment step at {TILE}^2, batch {TRAIN_BATCH}, every sample rotated: "
+            f"{ {k: round(v, 4) for k, v in ms.items()} } ms (CUDA events) [{card}]")
+        out["non_square"]["augment_ms"] = ms
+    del cache, batch
+
+    # 3. fused_bn=false against fused_bn=true (unfused, cuDNN) on the same
+    # weights: the bf16 eval forward at BATCH, an f32 train step at
+    # TRAIN_BATCH; the flax-rounding build runs under pallas_fused, where
+    # the fused pair must stay off.
+    sd = state_dict_from_flax(seeded_flax_variables(4, 3, BASE, seed=7))
+
+    def ef(dtype, fused_bn):
+        model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=BASE, dtype=dtype,
+                            device=device, fused_bn=fused_bn,
+                            conv_impl="pallas_fused" if not fused_bn else "xla")
+        model.load_state_dict(sd, strict=True)
+        return model
+
+    x = torch.rand(BATCH, 4, TILE, TILE, generator=gen, device=device)
+    probs, fwd_ms = {}, {}
+    for fused_bn in (False, True):
+        step = make_predict_step(ef(torch.bfloat16, fused_bn))
+        probs[fused_bn] = counted(f"forward fused_bn={fused_bn}", lambda: step({"image": x}))
+        if on_card:
+            fwd_ms[fused_bn] = cuda_ms(lambda: step({"image": x}), 5)
+    same = probs[False].argmax(-1) == probs[True].argmax(-1)
+    agree = float(same.float().mean())
+    dprob = float((probs[False] - probs[True]).abs().max())
+    # For the record, as in the imports of phase 11: the pixels whose
+    # fused_bn=true top two are more than 2*DPROB_TOL apart.
+    top2 = probs[True].topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * DPROB_TOL
+    agree_decided = float(same[decided].float().mean()) if decided.any() else None
+    xb = {"image": torch.rand(TRAIN_BATCH, TILE, TILE, 4, generator=gen, device=device),
+          "target": torch.randint(0, 3, (TRAIN_BATCH, TILE, TILE), generator=gen, device=device,
+                                  dtype=torch.int32)}
+    steps, step_ms = {}, {}
+    for name, dtype, fused_bn in (("false", torch.float32, False), ("true", torch.float32, True),
+                                  ("f64", torch.float64, False)):
+        loss, grads, again = counted(f"step fused_bn={name}",
+                                     lambda: step_grads(ef(dtype, fused_bn), sd, xb))
+        steps[name] = (loss, grads)
+        if on_card and name != "f64":
+            step_ms[name] = cuda_ms(again, 3, warmup=1)
+        del again
+    (lf, gf), (lt, gt), (_, g64) = steps["false"], steps["true"], steps["f64"]
+    loss_rel = _rel(lf, lt)
+    rels = grad_rels(gf, gt)
+    grad_max = max(r[0] for r in rels.values())
+    grad_norm = max(r[1] for r in rels.values())
+    worst_tensor = max(rels, key=lambda n: rels[n][1])
+    # The f64 step (flax rounding, f64 activations, the loss on f32 logits)
+    # as the witness, as in f32_step_check: each f32 step's worst distance
+    # to it, (max, norm) forms.
+    to64 = {k: grad_rels(g, g64) for k, g in (("false", gf), ("true", gt))}
+    worst64 = {k: (max(r[0] for r in v.values()), max(r[1] for r in v.values()))
+               for k, v in to64.items()}
+    witness_ok = all(worst64["false"][i] <= WITNESS_RATIO * worst64["true"][i] for i in (0, 1))
+    log(f"  fused_bn=false vs true: bf16 forward of {BATCH} argmax agreement {agree} "
+        f"({agree_decided} on the {float(decided.float().mean()):.4%} of pixels decided by more "
+        f"than {2 * DPROB_TOL}), max |dp| {dprob:.3e}; f32 step of {TRAIN_BATCH}: loss rel {loss_rel:.2e}, worst grad "
+        f"{grad_norm:.2e}·||g|| ({worst_tensor}) / {grad_max:.2e}·max|g|; vs the f64 step: "
+        f"false {worst64['false'][0]:.2e}/{worst64['false'][1]:.2e}, true "
+        f"{worst64['true'][0]:.2e}/{worst64['true'][1]:.2e} (max/norm); forward ms {fwd_ms}, "
+        f"step ms {step_ms} [{card}]")
+    if not (agree >= 0.999 and dprob <= DPROB_TOL and loss_rel <= 1e-4
+            and grad_norm <= GRAD_TOL and grad_max <= GRAD_MAX_TOL and witness_ok):
+        raise AssertionError("fused_bn=false disagrees with fused_bn=true")
+    out["fused_bn_false"] = {"argmax_agree": agree, "argmax_agree_decided": agree_decided,
+                             "decided_share": float(decided.float().mean()),
+                             "max_dprob": dprob, "loss_rel": loss_rel,
+                             "grad_rel_norm": grad_norm, "grad_rel_max": grad_max,
+                             "worst_tensor": worst_tensor,
+                             "f64_witness": {k: {"grad_rel_max": v[0], "grad_rel_norm": v[1]}
+                                             for k, v in worst64.items()},
+                             "forward_ms": {str(k).lower(): v for k, v in fwd_ms.items()},
+                             "step_ms": step_ms}
+    del probs, steps, gf, gt, g64, top2
+
+    # 4. tpu.debug_nans: clean fits off, on and off again (train steps on the
+    # card are not bit-reproducible run to run), and a poisoned fit.
+    clean, timing = {}, {}
+    for name, flag in (("off", "false"), ("on", "true"), ("off again", "false")):
+        exp = os.path.join(runs, "nans_" + name.replace(" ", "_"))
+        with Phase(f"data tools: fit, debug_nans {name}"), watch_checkpoints() as (saves, _):
+            counted(f"fit debug_nans {name}", lambda: fit_cli.main(
+                cli + data_overrides(data_root, exp, f"tpu.debug_nans={flag}")))
+        clean[name] = saves
+        with open(os.path.join(exp, "timing.json")) as handle:
+            timing[name] = json.load(handle)
+    gap_on, gap_off = loss_gap(clean["on"], clean["off"]), loss_gap(clean["off again"], clean["off"])
+    log(f"  debug_nans: per-epoch losses on vs off differ by {gap_on:.3e} (rel), off vs off "
+        f"again by {gap_off:.3e}")
+    if not gap_on <= 4 * gap_off:
+        raise AssertionError("the clean fit's losses move with tpu.debug_nans")
+    per_step = {k: v["train_wall"] / sum(e["n_train_batches"] for e in v["epochs"])
+                for k, v in timing.items()}
+    exp = os.path.join(runs, "nans_poisoned")
+    raised = None
+    with Phase("data tools: fit, debug_nans on a poisoned batch"), poisoned_train_steps(NAN_AT):
+        try:
+            counted("fit debug_nans poisoned", lambda: fit_cli.main(
+                cli + data_overrides(data_root, exp, "tpu.debug_nans=true")))
+        except FloatingPointError as exc:
+            raised = str(exc)
+    want = f"after train step {NAN_AT[1]} of epoch {NAN_AT[0]}"
+    log(f"  poisoned fit: {raised!r}")
+    if raised is None or want not in raised:
+        raise AssertionError(f"the poisoned fit raised {raised!r}, want '{want}'")
+    # The check alone, on a trained model's tensors: the host's time per
+    # call, synchronized on both sides.
+    model = ef(torch.bfloat16, True)
+    model.train()
+    state = create_train_state(model, None, 1e-4)
+    _, logs = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                              fuse_augmentation=False)(state, xb)
+    named = train_fit._train_step_tensors(model, logs["loss"])
+    times = []
+    for _ in range(10):
+        sync(device)
+        t0 = time.perf_counter()
+        train_fit.raise_on_nan("in the timing", named)
+        times.append(time.perf_counter() - t0)
+    out["debug_nans"] = {
+        "loss_gap_on_off": gap_on, "loss_gap_off_off": gap_off,
+        "train_wall_per_step_s": per_step, "check_ms": 1e3 * sorted(times)[5],
+        "checked_tensors": len(named), "raised": raised,
+        "losses": {k: [s["losses"] for s in v] for k, v in clean.items()},
+    }
+    log(f"  debug_nans check alone: {out['debug_nans']['check_ms']:.3f} ms per train step "
+        f"({len(named)} tensors, host clock, synchronized); train wall per step {per_step} s "
+        f"[{card}]")
+    del model, state, logs, named, xb
+
+    # 5. The tools on the phase's own data and experiments.
+    with Phase("data tools: visualize_transforms"):
+        gifs = counted("visualize_transforms", lambda: test_image_transforms.visualize_transforms(
+            "floodplanet", "PS", os.path.join(WORK, "data_tools_aug"), root_dir=data_root,
+            n_examples=8, crop=TILE, device=device))
+    with Phase("data tools: generate_dataset_visualizations"):
+        scene_gifs = counted("dataset visualizations",
+                             lambda: generate_dataset_visualizations.generate_dataset_visualizations(
+                                 "floodplanet", "PS", os.path.join(WORK, "data_tools_viz"),
+                                 root_dir=data_root))
+    with Phase("data tools: compute_feature_stats"):
+        stats = counted("feature stats", lambda: compute_feature_stats.compute_feature_stats(
+            "floodplanet", "PS", root_dir=data_root))["image"]
+    if len(gifs) != 8 or len(scene_gifs) != len(SCENES) or not (
+            stats["min"] <= stats["pct_5"] <= stats["pct_95"] <= stats["max"]):
+        raise AssertionError(f"tools: {len(gifs)} transform GIFs, {len(scene_gifs)} scene GIFs, "
+                             f"stats {stats}")
+    # The poisoned fit died in its first epoch, before any checkpoint: its
+    # config, its logs and an empty checkpoints/.
+    listed = counted("delete_failed_experiments --dry_run", lambda: delete_failed_experiments.main(
+        ["--outputs_dir", outputs, "--max_entries", "3", "--dry_run"]))
+    if listed != [os.path.join(runs, "nans_poisoned")] or not os.path.isdir(listed[0]):
+        raise AssertionError(f"delete_failed_experiments --dry_run listed {listed}, want the "
+                             f"poisoned fit alone, deleting none")
+
+    # The example transformer: the card against the CPU on the same weights.
+    torch.manual_seed(0)
+    cpu_model = ExampleTileTransformer(4, **TRANSFORMER)
+    card_model = ExampleTileTransformer(4, **TRANSFORMER).to(device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tiles = torch.rand(TRAIN_BATCH, TILE, TILE, 4, generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        want_t = cpu_model(tiles)
+        got_t = counted("example transformer", lambda: card_model(tiles.to(device))).cpu()
+        t_ms = cuda_ms(lambda: card_model(tiles.to(device)), 5) if on_card else None
+    t_err = float((got_t - want_t).abs().max())
+    t_rel = t_err / max(float(want_t.abs().max()), 1e-30)
+    n_tokens = (TILE // TRANSFORMER["patch"]) ** 2
+    log(f"  example transformer d_model {TRANSFORMER['d_model']}, {TRANSFORMER['n_layers']} "
+        f"layers, {n_tokens} tokens, batch {TRAIN_BATCH}: card vs CPU max |d| {t_err:.3e} "
+        f"({t_rel:.2e}·max|ref|), {t_ms} ms [{card}]")
+    if not (got_t.shape == (TRAIN_BATCH, TRANSFORMER["d_model"]) and t_rel <= TOL[torch.float32]):
+        raise AssertionError("the example transformer on the card disagrees with the CPU")
+    out["tools"] = {"transform_gifs": len(gifs), "scene_gifs": gif_sizes(scene_gifs),
+                    "feature_stats": stats, "gc_listed": [os.path.relpath(p, outputs)
+                                                          for p in listed],
+                    "transformer": {"tokens": n_tokens, "max_abs_err": t_err, "rel": t_rel,
+                                    "ms": t_ms}}
+
+    if any(any(v.values()) for v in launches.values()):
+        raise AssertionError(f"a hand-written kernel ran on this phase's paths: {launches}")
+    out["launches"] = {k: sum(v[k] for v in launches.values())
+                       for k in (conv_fused.KERNEL, rotate.KERNEL)}
+    out["seconds"] = seconds
+    shutil.rmtree(WORK, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2284,6 +2686,8 @@ def main() -> int:
         evaluation = run_evaluation(card)
     with Phase("model tools"):
         tools = run_tools(card)
+    with Phase("data tools and options"):
+        data_tools = run_data_tools(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -2305,12 +2709,15 @@ def main() -> int:
         # and the imported models; none on the cuDNN runs).
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
                      + sum(fit["launches"].values()) + sum(evaluation["launches"].values())
-                     + sum(tools["launches"].values())),
+                     + sum(tools["launches"].values())
+                     + data_tools["launches"][conv_fused.KERNEL]),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
                              "fit": sum(fit["launches"].values()),
                              "evaluation": sum(evaluation["launches"].values()),
-                             "tools": sum(tools["launches"].values())},
+                             "tools": sum(tools["launches"].values()),
+                             # fused_bn=false and the rest: no kernel on the path
+                             "data_tools": data_tools["launches"][conv_fused.KERNEL]},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -2328,7 +2735,11 @@ def main() -> int:
         "route": "cuda",
         "source": "floodplanet_code_tpu_torch/ops/csrc/rotate.cu",
         "replaces": "floodplanet_code_tpu/ops/rotate.py:193",
-        "launches": train["launches"][rotate.KERNEL],  # 3 per augment step
+        # 3 per augment step of the training phase; the data-tools phase's
+        # rotations are the roll shear and map_coordinates.
+        "launches": train["launches"][rotate.KERNEL] + data_tools["launches"][rotate.KERNEL],
+        "launches_by_path": {"training": train["launches"][rotate.KERNEL],
+                             "data_tools": data_tools["launches"][rotate.KERNEL]},
         # Parity over both shapes, axes, orders and types, and the timed launch.
         "max_abs_err": max(shear_worst[torch.bfloat16][1], shear_worst[torch.float32][1],
                            shear_row["max_abs_err"]),
@@ -2352,6 +2763,7 @@ def main() -> int:
     log(json.dumps({"fit": fit}))
     log(json.dumps({"evaluation": evaluation}))
     log(json.dumps({"tools": tools}))
+    log(json.dumps({"data_tools": data_tools}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

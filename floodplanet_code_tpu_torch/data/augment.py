@@ -12,6 +12,13 @@ steps:
 - ``apply_augmentation``: the transforms for given draws, so the same draws
   can be fed to this package and to the JAX one.
 
+Rotation runs one of two ways, as in the JAX package (augment.py:143-235):
+square crops by default through the three-shear rotation of
+``ops/rotate.py``, which also applies the flips; crops whose height differs
+from their width, or ``rotate_impl="map_coordinates"``, by the flips and
+then a direct bilinear resampling, ``jax.scipy.ndimage.map_coordinates`` in
+constant mode (``_rotate_map_coordinates``).
+
 ``augment_batch`` is the two together. Images are [B, H, W, C] and targets
 [B, H, W], the loader's layout. ``fill_ignore=True`` fills rotated-out label
 pixels with ``ignore_index`` instead of 0 (the reference's quirk is the
@@ -21,6 +28,7 @@ default).
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 
 import torch
@@ -50,7 +58,9 @@ class TransformParams:
     # train step consumes the compute dtype anyway).
     dtype: str = "float32"
     # "auto" / "shear_roll" / "shear": plain PyTorch gather shear;
-    # "shear_pallas": the CUDA row-shear kernel on a card.
+    # "shear_pallas": the CUDA row-shear kernel on a card;
+    # "map_coordinates": direct bilinear resampling (non-square crops take
+    # it whatever this says).
     rotate_impl: str = "auto"
 
     @classmethod
@@ -105,6 +115,66 @@ def draw_augmentation(
     return AugmentDraws(do_h, do_v, do_r, angles)
 
 
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """``lax.round``: halves away from zero (``torch.round`` takes them to
+    even). ``x - trunc(x)`` is exact, so the test is too."""
+    t = torch.trunc(x)
+    return t + torch.where((x - t).abs() >= 0.5, torch.sign(x), torch.zeros_like(x))
+
+
+def _taps(coord: torch.Tensor, order: int) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """(index, weight) pairs along one axis (map_coordinates' nodes); order
+    0's single weight is 1 (None)."""
+    if order == 0:
+        return [(_round_half_away(coord).long(), None)]
+    lower = torch.floor(coord)
+    upper_weight = coord - lower
+    index = lower.long()
+    return [(index, 1 - upper_weight), (index + 1, upper_weight)]
+
+
+def _map_coordinates(img: torch.Tensor, src_y: torch.Tensor, src_x: torch.Tensor,
+                     order: int, cval: float) -> torch.Tensor:
+    """``jax.scipy.ndimage.map_coordinates(mode="constant")`` of every
+    channel of img [B,H,W,C] at the [B,H,W] source coordinates, all C in one
+    gather per tap. A tap outside the image contributes ``cval`` times its
+    weight (the weights are not renormalized); the taps' products sum in
+    f32, in map_coordinates' order, and the sum is cast to img's dtype."""
+    b, h, w, _ = img.shape
+    rows = torch.arange(b, device=img.device).view(b, 1, 1)
+    fill = torch.tensor(cval, dtype=img.dtype, device=img.device)
+    out = None
+    for iy, wy in _taps(src_y, order):
+        for ix, wx in _taps(src_x, order):
+            valid = ((iy >= 0) & (iy < h) & (ix >= 0) & (ix < w))[..., None]
+            value = torch.where(valid, img[rows, iy.clamp(0, h - 1), ix.clamp(0, w - 1)], fill)
+            term = value.float() if order == 0 else (wy * wx)[..., None] * value
+            out = term if out is None else out + term
+    return out.to(img.dtype)
+
+
+def _rotate_map_coordinates(image, target, angles, label_fill):
+    """Rotate each sample about its centre by ``angles`` [B] radians (JAX
+    augment.py:78-100): the image bilinear with 0 fill, in its own dtype;
+    the label nearest-neighbour with ``label_fill``, as f32, then cast back
+    to its dtype. The source coordinates are computed in f32, from cos and
+    sin of the f32 angle taken in f64 and rounded once: f32 cos and sin
+    round differently from one library to the next, and a coordinate tens
+    of pixels from the centre moves with them."""
+    b, h, w, _ = image.shape
+    dev = image.device
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
+    xx = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
+    angles = angles.to(device=dev, dtype=torch.float32).view(b, 1, 1).double()
+    cos, sin = torch.cos(angles).float(), torch.sin(angles).float()
+    src_y = cos * (yy - cy) + sin * (xx - cx) + cy
+    src_x = -sin * (yy - cy) + cos * (xx - cx) + cx
+    image = _map_coordinates(image, src_y, src_x, 1, 0.0)
+    label = _map_coordinates(target[..., None].float(), src_y, src_x, 0, label_fill)
+    return image, label[..., 0].to(target.dtype)
+
+
 def apply_augmentation(
     image: torch.Tensor,
     target: torch.Tensor,
@@ -114,25 +184,29 @@ def apply_augmentation(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The transforms of ``draws`` on image [B,H,W,C] and target [B,H,W].
 
-    With rotation on, one pass rotates ``[image | label | validity]`` in
-    ``params.dtype`` (label and validity nearest-neighbour, exact in bf16),
-    so the image comes back in that dtype. Flips alone keep the image's
+    With rotation on a square crop (the shear backends), one pass rotates
+    ``[image | label | validity]`` in ``params.dtype`` (label and validity
+    nearest-neighbour, exact in bf16), so the image comes back in that
+    dtype. Flips alone and the map_coordinates rotation keep the image's
     dtype. Returns (image, target in target's dtype).
     """
     if not params.any_active:
         return image, target
-    if params.rotate_active:
-        if params.rotate_impl not in _SHEAR_IMPLS:
-            raise NotImplementedError(
-                f"rotate_impl={params.rotate_impl!r} is not ported (ROADMAP.md "
-                f"Queue 1); use one of {sorted(_SHEAR_IMPLS)}"
-            )
-        if image.shape[1] != image.shape[2]:
-            raise NotImplementedError(
-                f"rotation of non-square crops {image.shape[1]}x{image.shape[2]} "
-                "(the JAX package's map_coordinates path) is not ported "
-                "(ROADMAP.md Queue 1)"
-            )
+    impl = params.rotate_impl
+    if impl != "map_coordinates" and impl not in _SHEAR_IMPLS:
+        raise ValueError(f"rotate_impl must be one of {sorted(_SHEAR_IMPLS)} or "
+                         f"'map_coordinates', not {impl!r}")
+    if params.rotate_active and image.shape[1] != image.shape[2]:
+        # The shear reduces angles by quarter turns, which needs a square.
+        warnings.warn(
+            f"rotation of non-square crops {image.shape[1]}x{image.shape[2]} uses the "
+            "map_coordinates path (a gather per tap) instead of the shear; use square "
+            "crops for the shear backend",
+            stacklevel=2,
+        )
+        impl = "map_coordinates"
+    label_fill = float(ignore_index) if params.fill_ignore else 0.0
+    if params.rotate_active and impl in _SHEAR_IMPLS:
         dt = torch.bfloat16 if params.dtype == "bfloat16" else torch.float32
         n_img = image.shape[-1]
         combined = torch.cat(
@@ -147,22 +221,23 @@ def apply_augmentation(
             draws.do_v,
             order=1,
             cval=0.0,
-            impl=_SHEAR_IMPLS[params.rotate_impl],
+            impl=_SHEAR_IMPLS[impl],
             nearest_from=n_img,
         )
-        label_fill = float(ignore_index) if params.fill_ignore else 0.0
         inside = rotated[..., n_img + 1] > 0.5
         label = torch.where(
             inside, rotated[..., n_img], torch.tensor(label_fill, dtype=dt, device=image.device)
         )
         return rotated[..., :n_img], torch.round(label.float()).to(target.dtype)
-    # Flips only (augment.py:212-219): hflip reverses W, vflip H.
+    # Flips (augment.py:212-219): hflip reverses W, vflip H.
     fh = draws.do_h[:, None, None]
     fv = draws.do_v[:, None, None]
     image = torch.where(fh[..., None], image.flip(2), image)
     target = torch.where(fh, target.flip(2), target)
     image = torch.where(fv[..., None], image.flip(1), image)
     target = torch.where(fv, target.flip(1), target)
+    if params.rotate_active:
+        image, target = _rotate_map_coordinates(image, target, draws.angles, label_fill)
     return image, target
 
 

@@ -14,6 +14,11 @@ Port choices:
   ``0.9*old + 0.1*batch`` with the biased batch variance. Not
   ``nn.BatchNorm2d``: its momentum runs the other way and it updates with
   the unbiased variance.
+- ``fused_bn=False`` builds flax's ``nn.BatchNorm`` + ReLU instead
+  (``FlaxBatchNormReLU``: normalized in f32 and rounded once, in both
+  modes, with autograd's gradient) and switches the fused conv pair off, as
+  the JAX package does (models/unet.py:137 there). The parameter tree is
+  the same either way.
 - Params are f32; every module computes in the model's compute dtype (bf16
   by default): inputs and weights are cast at each conv, the logits are
   cast back to f32, as the flax ``dtype``/``param_dtype`` split does.
@@ -119,8 +124,38 @@ class BatchNormReLU(nn.Module):
         return F.relu(x * a.to(dt).view(1, -1, 1, 1) + b.to(dt).view(1, -1, 1, 1))
 
 
+class FlaxBatchNormReLU(BatchNormReLU):
+    """flax ``nn.BatchNorm`` then ReLU: the JAX package's ``fused_bn=False``
+    (models/unet.py:178-190 there; flax ``_compute_stats``, ``_normalize``).
+
+    Train mode: the mean and E[x^2] over (N, H, W) in f32 (x promoted
+    first), the biased variance ``max(0, E[x^2] - mean^2)``, the running
+    statistics moved as ``0.9*old + 0.1*batch``. Both modes then compute
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 and round it
+    once to x's dtype before the ReLU; eval mode uses the running
+    statistics, not ``fold()``. The gradient is autograd's through that
+    expression, statistics included (flax has no custom VJP here).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, m2 = batch_stats(x)
+            var = torch.clamp_min(m2 - mean * mean, 0.0)
+            self._update_running(mean.detach(), var.detach())
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return F.relu(y.to(x.dtype))
+
+
 class DoubleConv(nn.Module):
-    """(conv3x3 => BN => ReLU) * 2 (reference unet.py:6-20)."""
+    """(conv3x3 => BN => ReLU) * 2 (reference unet.py:6-20).
+
+    ``fused_pair``: BN_0's apply + ReLU and conv1 run as the fused op, under
+    ``conv_impl="pallas_fused"`` with ``fused_bn`` (JAX models/unet.py:137).
+    """
 
     def __init__(
         self,
@@ -128,16 +163,18 @@ class DoubleConv(nn.Module):
         out_channels: int,
         mid_channels: int | None = None,
         conv_impl: str = "xla",
+        fused_bn: bool = True,
     ):
         super().__init__()
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, not {conv_impl!r}")
         mid = mid_channels or out_channels
-        self.conv_impl = conv_impl
+        self.fused_pair = conv_impl == "pallas_fused" and fused_bn
+        bn = BatchNormReLU if fused_bn else FlaxBatchNormReLU
         self.conv0 = nn.Conv2d(in_channels, mid, 3, padding=1, bias=False)
-        self.bn0 = BatchNormReLU(mid)
+        self.bn0 = bn(mid)
         self.conv1 = nn.Conv2d(mid, out_channels, 3, padding=1, bias=False)
-        self.bn1 = BatchNormReLU(out_channels)
+        self.bn1 = bn(out_channels)
         self._fused = (None, None)  # (key, (a, b, packed)), see _fused_operands
         self._frozen = False  # see freeze_fused_operands
 
@@ -148,6 +185,8 @@ class DoubleConv(nn.Module):
         program (tools/export_model.py) carries them as constants, as the
         JAX export carries its weights; tracing cannot read ``_pack_key``'s
         storage pointers and versions. The weights must not change after."""
+        if not self.fused_pair:
+            raise RuntimeError("freeze_fused_operands: this DoubleConv runs no fused pair")
         a, b = self.bn0.fold()
         ap, bp, wp = pack(a, b, self.conv1.weight, dtype)
         for name, t in (("frozen_a", a), ("frozen_b", b), ("frozen_ap", ap),
@@ -193,7 +232,7 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _conv(x, self.conv0)
-        if self.conv_impl == "pallas_fused":
+        if self.fused_pair:
             # BN_0's apply + ReLU run inside Conv_1's kernel.
             a, b, packed = self._fused_operands(y)
             y = relu_affine_conv3x3(y, a, b, self.conv1.weight, packed)
@@ -206,9 +245,11 @@ class Down(nn.Module):
     """maxpool(2) then DoubleConv (reference unet.py:23-32). The 2x2/2 pool
     floors odd sizes, as flax's VALID pool does."""
 
-    def __init__(self, in_channels: int, out_channels: int, conv_impl: str = "xla"):
+    def __init__(self, in_channels: int, out_channels: int, conv_impl: str = "xla",
+                 fused_bn: bool = True):
         super().__init__()
-        self.double_conv = DoubleConv(in_channels, out_channels, conv_impl=conv_impl)
+        self.double_conv = DoubleConv(in_channels, out_channels, conv_impl=conv_impl,
+                                      fused_bn=fused_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.double_conv(F.max_pool2d(x, 2))
@@ -250,11 +291,12 @@ class Up(nn.Module):
         mid_channels: int | None = None,
         align_corners: bool = False,
         conv_impl: str = "xla",
+        fused_bn: bool = True,
     ):
         super().__init__()
         self.align_corners = align_corners
         self.double_conv = DoubleConv(
-            in_channels, out_channels, mid_channels, conv_impl=conv_impl
+            in_channels, out_channels, mid_channels, conv_impl=conv_impl, fused_bn=fused_bn
         )
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -266,14 +308,14 @@ class UNetEncoder(nn.Module):
     """inc + 4 downs -> 5-level feature pyramid (reference unet.py:134-159)."""
 
     def __init__(self, in_channels: int, base_feat_channels: int = 64,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", fused_bn: bool = True):
         super().__init__()
         bfc = base_feat_channels
-        self.inc = DoubleConv(in_channels, bfc, conv_impl=conv_impl)
-        self.down1 = Down(bfc, bfc * 2, conv_impl)
-        self.down2 = Down(bfc * 2, bfc * 4, conv_impl)
-        self.down3 = Down(bfc * 4, bfc * 8, conv_impl)
-        self.down4 = Down(bfc * 8, bfc * 8, conv_impl)  # (bfc*16)//2, bilinear
+        self.inc = DoubleConv(in_channels, bfc, conv_impl=conv_impl, fused_bn=fused_bn)
+        self.down1 = Down(bfc, bfc * 2, conv_impl, fused_bn)
+        self.down2 = Down(bfc * 2, bfc * 4, conv_impl, fused_bn)
+        self.down3 = Down(bfc * 4, bfc * 8, conv_impl, fused_bn)
+        self.down4 = Down(bfc * 8, bfc * 8, conv_impl, fused_bn)  # (bfc*16)//2, bilinear
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         x1 = self.inc(x)
@@ -288,10 +330,10 @@ class UNetDecoder(nn.Module):
     """4 ups + 1x1 out conv with bias (reference unet.py:162-201)."""
 
     def __init__(self, n_classes: int, base_feat_channels: int = 64,
-                 align_corners: bool = False, conv_impl: str = "xla"):
+                 align_corners: bool = False, conv_impl: str = "xla", fused_bn: bool = True):
         super().__init__()
         bfc = base_feat_channels
-        kw = dict(align_corners=align_corners, conv_impl=conv_impl)
+        kw = dict(align_corners=align_corners, conv_impl=conv_impl, fused_bn=fused_bn)
         # Bilinear variant: each Up halves channels; mid = in_channels // 2
         # (reference DoubleConv(in, out, in//2), unet.py:46).
         self.up1 = Up(bfc * 16, bfc * 4, mid_channels=bfc * 8, **kw)
@@ -324,12 +366,13 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         align_corners: bool = False,
         conv_impl: str = "xla",
+        fused_bn: bool = True,
     ):
         super().__init__()
         self.dtype = dtype
-        self.encoder = UNetEncoder(in_channels, base_feat_channels, conv_impl)
+        self.encoder = UNetEncoder(in_channels, base_feat_channels, conv_impl, fused_bn)
         self.decoder = UNetDecoder(
-            n_classes, base_feat_channels, align_corners, conv_impl
+            n_classes, base_feat_channels, align_corners, conv_impl, fused_bn
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -76,6 +76,7 @@ class LateFusionModel(nn.Module):
         dtype: torch.dtype = torch.float32,
         align_corners: bool = False,
         conv_impl: str = "xla",
+        fused_bn: bool = True,
     ):
         super().__init__()
         if feat_fusion != "concat_conv":
@@ -85,7 +86,7 @@ class LateFusionModel(nn.Module):
             )
         self.dtype = dtype
         self.encoders = nn.ModuleDict({
-            name: UNetEncoder(c, base_feat_channels, conv_impl)
+            name: UNetEncoder(c, base_feat_channels, conv_impl, fused_bn)
             for name, c in in_channels.items()
         })
         bfc = base_feat_channels
@@ -93,7 +94,8 @@ class LateFusionModel(nn.Module):
         self.concat_convs = nn.ModuleList(
             nn.Conv2d(c * n, c, 1) for c in (bfc, bfc * 2, bfc * 4, bfc * 8, bfc * 8)
         )
-        self.decoder = UNetDecoder(n_classes, base_feat_channels, align_corners, conv_impl)
+        self.decoder = UNetDecoder(n_classes, base_feat_channels, align_corners, conv_impl,
+                                   fused_bn)
 
     def forward(self, batch: dict) -> torch.Tensor:
         modality_input = {"ms_image": batch["image"]}
@@ -153,7 +155,9 @@ def build_model(
 
     ``in_channels`` is the dataset's modality -> channel-count dict: the
     early-fusion model takes their sum, the late-fusion model one encoder
-    per entry, the plain model ``ms_image``. ``optimizer_name`` and the
+    per entry, the plain model ``ms_image``. ``fused_bn=False`` builds
+    flax's BatchNorm rounding with the fused conv pair off
+    (``models/unet.py::FlaxBatchNormReLU``). ``optimizer_name`` and the
     JAX-only implementation choices ``pool_impl``/``upsample_impl`` are
     accepted and ignored. Raises without a card unless ``device="cpu"``.
     """
@@ -162,10 +166,6 @@ def build_model(
     model_kwargs.pop("optimizer_name", None)
     for key in _SAME_FUNCTION_KWARGS:
         model_kwargs.pop(key, None)
-    if not model_kwargs.pop("fused_bn", True):
-        raise NotImplementedError(
-            "fused_bn=false (flax nn.BatchNorm rounding) is not ported"
-        )
     try:
         model_cls = MODELS[model_name]
     except KeyError:

@@ -93,10 +93,9 @@ def export_checkpoint(
     dataset = build_experiment_dataset(cfg, eval_dataset_split, eval_dataset_name)
     model = load_model_for_eval(cfg, checkpoint_path, dataset, device)
     conv_impl = resolve_conv_impl(cfg)
-    if conv_impl == "pallas_fused":
-        for module in model.modules():
-            if isinstance(module, DoubleConv):
-                module.freeze_fused_operands(resolve_compute_dtype(cfg))
+    for module in model.modules():
+        if isinstance(module, DoubleConv) and module.fused_pair:
+            module.freeze_fused_operands(resolve_compute_dtype(cfg))
 
     inputs = {
         _batch_key(key): torch.zeros((batch_size, height, width, ch), dtype=torch.float32,

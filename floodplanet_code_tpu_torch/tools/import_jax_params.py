@@ -22,6 +22,10 @@ the JAX package, ``state_dict_from_flax``, ``save_weights``.
 ``seeded_flax_variables`` makes a flax-layout tree from a numpy seed (the
 same structure and shapes ``model.init`` gives), for runs that need
 full-width weights without JAX.
+
+``example_transformer_state_dict(params)`` carries the flax
+``ExampleTileTransformer``'s ``params`` to the port's
+``models/example_transformer.py``.
 """
 
 from __future__ import annotations
@@ -175,6 +179,35 @@ def seeded_flax_variables(
         blocks(f"{root}/encoder", _ENCODER_BLOCKS, in_channels)
         decoder(f"{root}/decoder")
     return {"params": params, "batch_stats": stats}
+
+
+def example_transformer_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The flax ``ExampleTileTransformer``'s ``params`` -> the port's state
+    dict: the patch conv HWIO -> OIHW; Dense kernels [in, out] -> Linear
+    [out, in]; the attention's ``DenseGeneral`` kernels [d, heads, head_dim]
+    (query, key, value) and [heads, head_dim, d] (out) flattened over the
+    heads first; LayerNorm ``scale`` -> ``weight``."""
+    state = {"special_token": _tensor(params["special_token"]),
+             "embed.weight": _tensor(params["Conv_0"]["kernel"], (3, 2, 0, 1)),
+             "embed.bias": _tensor(params["Conv_0"]["bias"])}
+    n_layers = sum(1 for name in params if name.startswith("EncoderBlock_"))
+    for i in range(n_layers):
+        block, prefix = params[f"EncoderBlock_{i}"], f"blocks.{i}."
+        for flax_name, port in (("LayerNorm_0", "norm0"), ("LayerNorm_1", "norm1")):
+            state[prefix + port + ".weight"] = _tensor(block[flax_name]["scale"])
+            state[prefix + port + ".bias"] = _tensor(block[flax_name]["bias"])
+        for flax_name, port in (("Dense_0", "mlp0"), ("Dense_1", "mlp1")):
+            state[prefix + port + ".weight"] = _tensor(block[flax_name]["kernel"], (1, 0))
+            state[prefix + port + ".bias"] = _tensor(block[flax_name]["bias"])
+        attn = block["MultiHeadDotProductAttention_0"]
+        for name in ("query", "key", "value"):
+            kernel = np.asarray(attn[name]["kernel"], np.float32)
+            state[f"{prefix}{name}.weight"] = _tensor(kernel.reshape(kernel.shape[0], -1), (1, 0))
+            state[f"{prefix}{name}.bias"] = _tensor(np.asarray(attn[name]["bias"]).reshape(-1))
+        kernel = np.asarray(attn["out"]["kernel"], np.float32)
+        state[prefix + "out.weight"] = _tensor(kernel.reshape(-1, kernel.shape[-1]), (1, 0))
+        state[prefix + "out.bias"] = _tensor(attn["out"]["bias"])
+    return state
 
 
 def save_weights(state_dict: dict, path: str) -> None:

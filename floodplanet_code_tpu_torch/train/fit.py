@@ -15,6 +15,8 @@
   EMA -> confusion matrix. It updates the state in place.
 - ``make_eval_step``: loss and confusion of a batch with padded rows
   (``valid`` = 0) masked out, on the EMA parameters when the state has them.
+- ``tpu.debug_nans``: the counterpart of ``jax_debug_nans``
+  (``raise_on_nan``), scoped to the fit.
 
 Batches are dicts of tensors in the loader's layout: ``image`` [B,H,W,C],
 ``target`` [B,H,W] int, ``valid`` [B] bool, optional aux rasters
@@ -205,10 +207,11 @@ def make_train_step(
 
 
 def make_eval_step(model, ignore_index: int):
-    """``eval_step(state, batch) -> {"loss", "confusion"}``: the eval-mode
-    forward under inference mode (on the EMA parameters when present),
-    with the rows whose ``valid`` is False dropped. The model's train/eval
-    mode is restored afterwards."""
+    """``eval_step(state, batch) -> {"loss", "confusion", "logits"}``: the
+    eval-mode forward under inference mode (on the EMA parameters when
+    present), loss and confusion with the rows whose ``valid`` is False
+    dropped, and the batch's f32 logits [B, n_classes, H, W]. The model's
+    train/eval mode is restored afterwards."""
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         was_training = model.training
@@ -227,11 +230,36 @@ def make_eval_step(model, ignore_index: int):
                                                  sample_weight=valid),
                     "confusion": confusion_from_logits(logits, target, ignore_index,
                                                        sample_weight=valid),
+                    "logits": logits,
                 }
         finally:
             model.train(was_training)
 
     return eval_step
+
+
+def raise_on_nan(where: str, named) -> None:
+    """Raise ``FloatingPointError`` naming the first of ``named`` ((name,
+    tensor) pairs, in order) that holds a NaN: ``tpu.debug_nans``, the
+    counterpart of ``jax_debug_nans``, which checks NaN and not inf. One
+    fused reduction and one host sync: a tensor's 2-norm is NaN exactly
+    when one of its elements is (an inf gives inf), and ``_foreach_norm``
+    takes all the tensors in one multi-tensor launch per dtype."""
+    names = [name for name, _ in named]
+    norms = torch._foreach_norm([t.detach().float() for _, t in named])
+    bad = torch.stack(norms).isnan().nonzero()  # the host sync
+    if bad.numel():
+        raise FloatingPointError(f"NaN in {names[int(bad[0, 0])]} {where} (tpu.debug_nans)")
+
+
+def _train_step_tensors(model, loss: torch.Tensor) -> list:
+    """What ``tpu.debug_nans`` checks after a train step: the loss, the
+    gradients, the updated parameters and the running statistics."""
+    params = list(model.named_parameters())
+    return ([("the loss", loss)]
+            + [(f"the gradient of {n}", p.grad) for n, p in params if p.grad is not None]
+            + [(f"parameter {n}", p) for n, p in params]
+            + [(f"running statistic {n}", b) for n, b in model.named_buffers()])
 
 
 def _steps_per_epoch(cfg, train_dataset, batch_size: int) -> int:
@@ -265,8 +293,6 @@ def _check_single_device(cfg) -> None:
         raise NotImplementedError(f"a tpu.multihost cluster {later}")
     if cfg.select("tpu.device_cache_shard", "auto") == "pod":
         raise NotImplementedError(f"tpu.device_cache_shard=pod {later}")
-    if cfg.select("tpu.debug_nans", False):
-        raise NotImplementedError("tpu.debug_nans (jax_debug_nans) is not ported")
 
 
 def _epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -296,6 +322,14 @@ def fit_model(
     instead of ``init_weights(model, seed_num)``. Raises without a card
     unless ``device="cpu"``, and for settings that need more than one
     device (``_check_single_device``).
+
+    ``tpu.debug_nans``: after every train step the loss, gradients,
+    parameters and running statistics, after every validation step the loss
+    and logits, are checked for NaN (``raise_on_nan``), and the first NaN
+    raises ``FloatingPointError`` naming the epoch, the step and the
+    tensor. Off, the steps carry no check and no sync. Unlike
+    ``jax_debug_nans``, which the JAX fit turns on for the rest of the
+    process, the setting ends with the fit.
     """
     device = resolve_device(device)
     _check_single_device(cfg)
@@ -439,6 +473,7 @@ def fit_model(
     writer, writer_name = open_writer(os.path.join(exp_dir, "tensorboard_logs"))
     print(f"[fit] logging with {writer_name} under {exp_dir}/tensorboard_logs")
     log_image_iter = cfg.select("log_image_iter") or 0
+    debug_nans = bool(cfg.select("tpu.debug_nans", False))
     profiler_mode = cfg.select("profiler")
     limit_train = cfg.select("limit_train_batches")
     limit_val = cfg.select("limit_val_batches")
@@ -467,6 +502,9 @@ def fit_model(
             if augment_step is not None:
                 batch = augment_step(generator, batch)
             state, logs = train_step(state, batch)
+            if debug_nans:
+                raise_on_nan(f"after train step {n_train_batches} of epoch {epoch}",
+                             _train_step_tensors(model, logs["loss"]))
             train_confusion += logs["confusion"]
             losses.append(logs["loss"])
             if first_step_wall is None:
@@ -512,8 +550,11 @@ def fit_model(
         eval_start = time.time()
         val_confusion = torch.zeros((n_classes, n_classes), device=device)
         val_losses = []
-        for batch in itertools.islice(valid_batches(), limit_val):
+        for k, batch in enumerate(itertools.islice(valid_batches(), limit_val)):
             logs = eval_step(state, batch)
+            if debug_nans:
+                raise_on_nan(f"after validation step {k} of epoch {epoch}",
+                             [("the loss", logs["loss"]), ("the logits", logs["logits"])])
             val_confusion += logs["confusion"]
             val_losses.append(logs["loss"])
         _sync(device)

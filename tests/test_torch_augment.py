@@ -132,13 +132,105 @@ def test_from_config_matches_jax(fill_ignore):
     assert not inactive.any_active
 
 
-@pytest.mark.parametrize("kw", [dict(rotate_impl="map_coordinates"), dict()])
-def test_unported_rotations_raise(rng, kw):
-    tp = TransformParams(**kw)
+# The map_coordinates rotation (JAX augment.py:78-100, 212-235): square
+# crops under rotate_impl="map_coordinates", non-square crops under "auto",
+# label fill 0 or ignore_index -1, random angles and exactly 90 and 45
+# degrees (a 90-degree turn of an odd width puts source coordinates on
+# half-integers, where nearest-neighbour rounding decides).
+MC_CASES = {
+    "square-map_coordinates": ((32, 32), dict(rotate_impl="map_coordinates")),
+    "square-map_coordinates-fill": ((32, 32), dict(rotate_impl="map_coordinates",
+                                                   fill_ignore=True)),
+    "nonsquare-auto": ((24, 40), dict()),
+    "nonsquare-auto-fill": ((24, 40), dict(fill_ignore=True)),
+    "nonsquare-90-fill": ((24, 31), dict(min_rot_angle=90.0, max_rot_angle=90.0,
+                                         fill_ignore=True)),
+    "nonsquare-45": ((31, 24), dict(min_rot_angle=45.0, max_rot_angle=45.0)),
+}
+
+
+def _jax_source_coords(draws, h, w):
+    """JAX's source coordinates per sample (augment.py:83-89), [B, H, W]."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = jnp.arange(h, dtype=jnp.float32)[None, :, None]
+    xx = jnp.arange(w, dtype=jnp.float32)[None, None, :]
+    a = jnp.asarray(draws.angles.numpy())[:, None, None]
+    cos, sin = jnp.cos(a), jnp.sin(a)
+    return (np.asarray(cos * (yy - cy) + sin * (xx - cx) + cy),
+            np.asarray(-sin * (yy - cy) + cos * (xx - cx) + cx))
+
+
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_map_coordinates_rotation_matches_jax(case):
+    """Images within 1e-5 absolute, on values uniform in [0, 1) (the scale
+    of range-normalized inputs): XLA's jit rounds the coordinates'
+    arithmetic differently from its own eager evaluation, which the port
+    equals (test_map_coordinates_equals_jax_eager_bit_for_bit), and an ulp
+    of a coordinate moves an image by that times the step between
+    neighbouring pixels. Labels equal except where JAX's source coordinate
+    lies within 1e-4 of a half-integer, on at most 0.1% of the pixels."""
+    (h, w), kw = MC_CASES[case]
+    jp, tp = _params(**kw)
+    rng = np.random.default_rng(7)
+    image = rng.random((6, h, w, 4), dtype=np.float32)
+    target = rng.choice([0, 1, 2], (6, h, w)).astype(np.int32)
+    ignore = -1
+    key = jax.random.key(2)
+    want_img, want_tgt = jax_augment(key, jnp.asarray(image), jnp.asarray(target), jp, ignore)
+    draws = _jax_draws(key, 6, jp)
+    assert draws.do_r.any() and not draws.do_r.all()
+    got_img, got_tgt = apply_augmentation(torch.from_numpy(image), torch.from_numpy(target),
+                                          draws, tp, ignore)
+    assert got_img.dtype == torch.float32 and got_tgt.dtype == torch.int32
+    np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), atol=1e-5, rtol=0)
+    # Rotation runs after the flips on the flipped sample; its coordinates
+    # do not depend on the pixels.
+    src_y, src_x = _jax_source_coords(draws, h, w)
+    near_half = ((np.abs(src_y - np.floor(src_y) - 0.5) < 1e-4)
+                 | (np.abs(src_x - np.floor(src_x) - 0.5) < 1e-4))
+    differ = got_tgt.numpy() != np.asarray(want_tgt)
+    assert not (differ & ~near_half).any()
+    assert differ.mean() <= 1e-3
+    if kw.get("fill_ignore"):
+        assert (got_tgt.numpy() == ignore).any()
+
+
+def test_map_coordinates_equals_jax_eager_bit_for_bit():
+    """Against JAX's augment_batch evaluated op by op (jax.disable_jit), on
+    standard-normal images at 45 degrees: equal, images and labels. The
+    jitted function rounds the coordinates' arithmetic otherwise."""
+    (h, w), kw = MC_CASES["nonsquare-45"]
+    jp, tp = _params(**kw)
+    rng = np.random.default_rng(8)
+    image = rng.standard_normal((6, h, w, 4)).astype(np.float32)
+    target = rng.choice([0, 1, 2], (6, h, w)).astype(np.int32)
+    key = jax.random.key(2)
+    with jax.disable_jit():
+        want_img, want_tgt = jax_augment(key, jnp.asarray(image), jnp.asarray(target), jp, 0)
+    got_img, got_tgt = apply_augmentation(torch.from_numpy(image), torch.from_numpy(target),
+                                          _jax_draws(key, 6, jp), tp, 0)
+    np.testing.assert_array_equal(got_img.numpy(), np.asarray(want_img))
+    np.testing.assert_array_equal(got_tgt.numpy(), np.asarray(want_tgt))
+
+
+def test_map_coordinates_keeps_the_image_dtype_and_warns_per_shape(rng):
+    """Non-square crops warn once per shape and take map_coordinates, which
+    keeps the image's dtype whatever ``params.dtype`` says (JAX
+    augment.py:221-235); square crops under "auto" shear silently."""
+    import warnings
+
+    tp = TransformParams(rotate_likelihood=1.0, dtype="float32")
     image, target = _batch(rng, hw=16)
-    if not kw:  # non-square crops
-        image, target = image[:, :, :12], target[:, :, :12]
+    image = torch.from_numpy(np.ascontiguousarray(image[:, :, :12])).to(torch.bfloat16)
+    target = torch.from_numpy(np.ascontiguousarray(target[:, :, :12]))
     draws = draw_augmentation(torch.Generator().manual_seed(0), 6, tp, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_augmentation(torch.from_numpy(np.ascontiguousarray(image)),
-                           torch.from_numpy(np.ascontiguousarray(target)), draws, tp)
+    with pytest.warns(UserWarning, match="non-square crops 16x12"):
+        img, tgt = apply_augmentation(image, target, draws, tp)
+    assert img.dtype == torch.bfloat16 and img.shape == image.shape
+    assert tgt.dtype == torch.int32
+    square, square_tgt = _batch(rng, hw=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        apply_augmentation(torch.from_numpy(square), torch.from_numpy(square_tgt), draws, tp)
+    with pytest.raises(ValueError, match="rotate_impl"):
+        apply_augmentation(image, target, draws, TransformParams(rotate_impl="bicubic"))

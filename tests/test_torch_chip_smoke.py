@@ -20,7 +20,11 @@ count no kernel launch:
   re-run, the soup's re-scoring checks, the ensemble of two seeds (and
   across folds, refused), the export with and without TTA against the live
   step, the daemon on the artifact, and reference-schema checkpoints
-  imported and served.
+  imported and served;
+- data tools and options: global normalization (the parameters, cache
+  parity, fits through both input paths), the non-square fit and augment
+  check, fused_bn=false against fused_bn=true, debug_nans fits clean and
+  poisoned, the data tools and the example transformer.
 """
 
 import torch
@@ -119,4 +123,25 @@ def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result["serve_artifact"]["masks_equal"]
     assert all(r["max_dprob"] == 0.0 and r["argmax_equal"] for r in result["export"].values())
     assert set(result["import"]) == {"ef", "lf"}
+    assert not (tmp_path / "work").exists()
+
+
+def test_data_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "SCENES", [(150, 200), (150, 200), (100, 170)])
+    monkeypatch.setattr(chip_smoke, "DATA_CROP", (48, 64))
+    monkeypatch.setattr(chip_smoke, "DATA_LIMIT_TRAIN", 3)
+    monkeypatch.setattr(chip_smoke, "DATA_LIMIT_VAL", 1)
+    monkeypatch.setattr(chip_smoke, "TRANSFORMER", {"d_model": 32, "n_layers": 1, "patch": 16})
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    result = chip_smoke.run_data_tools("cpu", device="cpu")
+    assert result["launches"] == {"relu_affine_conv3x3": 0, "shear": 0}
+    assert result["debug_nans"]["loss_gap_on_off"] == 0.0  # one code path on the CPU
+    assert "after train step 2 of epoch 0" in result["debug_nans"]["raised"]
+    assert result["non_square"]["augment_max_abs_err"] == 0.0
+    assert result["fused_bn_false"]["loss_rel"] <= 1e-4
+    assert "phase12/nans_poisoned" in result["tools"]["gc_listed"]
     assert not (tmp_path / "work").exists()

@@ -20,7 +20,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
                         shear_timing, run_training, cache_parity, run_fit, run_evaluation,
-                        run_tools, main)
+                        run_tools, run_data_tools, main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -69,6 +69,12 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.tools.run_crossval",
         "floodplanet_code_tpu_torch.tools.export_model",
         "floodplanet_code_tpu_torch.tools.import_torch_checkpoint",
+        "floodplanet_code_tpu_torch.tools.compute_norm_params",
+        "floodplanet_code_tpu_torch.tools.compute_feature_stats",
+        "floodplanet_code_tpu_torch.tools.generate_dataset_visualizations",
+        "floodplanet_code_tpu_torch.tools.test_image_transforms",
+        "floodplanet_code_tpu_torch.tools.delete_failed_experiments",
+        "floodplanet_code_tpu_torch.models.example_transformer",
     ):
         assert expected in names
 
