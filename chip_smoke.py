@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, fit, evaluation,
-model-tool and data-tool paths on one NVIDIA card and check them.
+model-tool, data-tool and multi-device paths on one NVIDIA card (two
+ranks share it) and check them.
 
 Run from the repository root, with no arguments:
 
@@ -103,13 +104,31 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    batch (``FloatingPointError`` at the step); ``visualize_transforms`` on
    the card, ``generate_dataset_visualizations``, ``compute_feature_stats``,
    ``delete_failed_experiments --dry_run`` over the phase's experiments, and
-   the example transformer on the card against the CPU.
+   the example transformer on the card against the CPU;
+13. more than one device (``parallel/``), on the full-width early-fusion
+   model (base 64, bf16 and f32, conv_impl=pallas_fused, 512^2): two ranks
+   that share the one card over gloo (NCCL refuses two ranks on one
+   device): the f32 data-parallel train step at global batch MD_BATCH (half
+   per rank) held to the one-rank step on the same batch by phase 8's rule
+   (loss 1e-4; each gradient, the running statistics and, after MD_STEPS
+   steps, the parameters within GRAD_TOL of their norm and GRAD_MAX_TOL of
+   their largest element), bf16 steps on one batch whose loss must fall, the
+   eval step with padded rows, the augment step (shear kernel) over the
+   globally drawn batch bit for bit, exact launches per rank; one rank over
+   NCCL; a 2-rank ``fit_model`` (parallel/launch.py) through the replicated
+   scene cache, resumed on both ranks through the pod-sharded cache as 2
+   pods (its batches equal the replicated ones), rank 0 alone writing,
+   per-epoch losses within 3% of the one-rank fit; ``infer`` over two
+   replicas against one device (>= 99.9% of pixels, |dp| <= DPROB_TOL). On
+   a machine with two cards or more, the 2-rank fit over NCCL and ``infer``
+   over two cards too; else one line says they were not run.
 
-The last nine lines of standard output are the serving slice's numbers as
+The last ten lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
 JSON, the evaluation phase's numbers as JSON, the model tools' numbers as
-JSON, the data tools' numbers as JSON, the card's name and power limit, the
-``kernels`` JSON line and the ``{"ok": true, ...}`` line.
+JSON, the data tools' numbers as JSON, the multi-device phase's numbers as
+JSON, the card's name and power limit, the ``kernels`` JSON line and the
+``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -117,12 +136,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -298,6 +319,20 @@ DATA_LIMIT_VAL = 2
 DATA_CROP = (384, 512)
 NAN_AT = (0, 2)
 TRANSFORMER = {"d_model": 128, "n_layers": 2, "patch": 16}
+
+# Multi-device phase: the data-parallel steps of the full-width model on
+# MD_BATCH global rows of the training phase's scenes (MD_BATCH / 2 per
+# rank), MD_STEPS f32 steps held to the one-rank step, MD_FIXED_STEPS bf16
+# steps on one batch, an eval batch with MD_PAD padded rows; the 2-rank
+# fits cut to MD_EPOCHS epochs of MD_LIMIT_TRAIN steps and MD_LIMIT_VAL
+# validation batches at the training phase's batch.
+MD_BATCH = 8
+MD_STEPS = 3
+MD_FIXED_STEPS = 4
+MD_PAD = 3
+MD_EPOCHS = 2
+MD_LIMIT_TRAIN = 4
+MD_LIMIT_VAL = 2
 AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0, 1]
 
 
@@ -2653,6 +2688,491 @@ def run_data_tools(card: str, device="cuda") -> dict:
     return out
 
 
+# -- 13. more than one device -------------------------------------------------------
+
+
+def _md_tf32_off() -> None:
+    # A rank is a fresh interpreter: main() did not run there. The f32
+    # references run in full f32 (cuDNN would use TF32 by default).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _md_model(spec: dict, dtype, device, group=None):
+    model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=spec["base"],
+                        dtype=dtype, device=device, conv_impl="pallas_fused", bn_group=group)
+    sd = state_dict_from_flax(seeded_flax_variables(4, 3, spec["base"], seed=1))
+    return model, create_train_state(model, sd, 1e-4)
+
+
+def _md_tensors(batch: dict, rows, device) -> dict:
+    return {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
+
+
+def md_steps(spec: dict, device, mesh=None) -> dict:
+    """Phase 13's step checks on this process's rows of ``spec``'s global
+    batch: with ``mesh`` (a rank) the data-parallel steps, without it the
+    one-rank steps on the whole batch. The f32 eval step with padded rows
+    and MD_STEPS f32 train steps from the seeded weights, MD_FIXED_STEPS
+    bf16 steps on the same batch, the augment step (shear kernel, bf16),
+    and each path's launches."""
+    from floodplanet_code_tpu_torch.parallel.mesh import batch_group, local_rows
+
+    _md_tf32_off()
+    group = None if mesh is None else batch_group(mesh)
+    rows = slice(None) if mesh is None else local_rows(mesh, spec["batch"]["image"].shape[0])
+    batch = _md_tensors(spec["batch"], rows, device)
+    n = spec["batch"]["image"].shape[0]
+    valid = torch.arange(n, device=device)[rows] < spec["n_valid"]
+    out, launches = {}, {}
+
+    def counted(name, fn, kernel=conv_fused.KERNEL):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        value = fn()
+        sync(device)
+        launches[name] = LAUNCHES[kernel]  # and ends here
+        return value
+
+    model, state = _md_model(spec, torch.float32, device, group)
+    eval_step = make_eval_step(model, 0, group)
+    logs = counted("eval", lambda: eval_step(state, dict(batch, valid=valid)))
+    out["eval"] = {"loss": logs["loss"].item(), "confusion": logs["confusion"].cpu().numpy()}
+    step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                           fuse_augmentation=False, group=group)
+    losses = []
+
+    def f32_steps():
+        nonlocal state
+        for k in range(spec["steps"]):
+            state, logs = step(state, batch)
+            losses.append(logs["loss"].item())
+            if k == 0:
+                out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+                out["stats1"] = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+
+    counted("f32_steps", f32_steps)
+    out["f32_losses"] = losses
+    out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    out["stats"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    del model, state, step, eval_step
+    model, state = _md_model(spec, torch.bfloat16, device, group)
+    step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                           fuse_augmentation=False, group=group)
+    bf16 = []
+
+    def bf16_steps():
+        nonlocal state
+        for _ in range(spec["fixed_steps"]):
+            state, logs = step(state, batch)
+            bf16.append(logs["loss"])
+
+    counted("bf16_steps", bf16_steps)
+    out["bf16_losses"] = [v.item() for v in bf16]
+    if torch.device(device).type == "cuda":
+        out["bf16_step_ms"] = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+        if group is not None:
+            # The step's collectives alone (host clock, synchronized): the
+            # gradients' one all-reduce, and one of the size a BatchNorm
+            # sums (2 x 512 channels + 1).
+            from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
+
+            for name, n in (("grad_all_reduce_ms", sum(p.numel() for p in model.parameters())),
+                            ("bn_all_reduce_ms", 1025)):
+                flat = torch.zeros(n, device=device)
+                all_reduce(flat, group)
+                sync(device)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    all_reduce(flat, group)
+                sync(device)
+                out[name] = (time.perf_counter() - t0) / 5 * 1e3
+    del model, state, step
+    tp = TransformParams(rotate_impl="shear_pallas", dtype="bfloat16")
+    augment = make_augment_step(tp, 0, mesh)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    aug = counted("augment", lambda: augment(gen, batch), rotate.KERNEL)
+    out["augment"] = {k: aug[k].cpu() for k in ("image", "target")}
+    out["launches"] = launches
+    return out
+
+
+def md_rank(spec: dict, fits: dict, device) -> dict:
+    """All of phase 13's work on one of the two ranks that share the
+    device, in one process start: the step checks on the 1-D data mesh
+    (md_steps), the fit through the replicated cache with both ranks on one
+    node, then its resume through the pod-sharded cache with each rank a
+    node of its own (LOCAL_WORLD_SIZE, which mesh.detect_n_pods reads, as
+    ``launch.spawn(pods=2)`` sets it). Each part's seconds on this rank."""
+    from floodplanet_code_tpu_torch.parallel.mesh import make_mesh
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["steps"] = md_steps(spec, device, make_mesh())
+    seconds["steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["replicated"] = md_fit_rank(fits["replicated"], fits["exp"], None, device)
+    seconds["fit_replicated"] = time.perf_counter() - t0
+    os.environ.update(LOCAL_WORLD_SIZE="1", LOCAL_RANK="0", GROUP_RANK=os.environ["RANK"])
+    t0 = time.perf_counter()
+    out["pod"] = md_fit_rank(fits["pod"], fits["exp"], fits["pod_spec"], device)
+    seconds["fit_pod"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def md_nccl_one_rank(spec: dict, device) -> dict:
+    """One data-parallel f32 step in this process as a group of one rank,
+    through the backend the launcher picks for one device (NCCL for a
+    card): its backend and loss. Run in the smoke's own process, which has
+    the card and the kernels up already."""
+    import torch.distributed as dist
+
+    from floodplanet_code_tpu_torch.parallel import launch
+    from floodplanet_code_tpu_torch.parallel.mesh import batch_group, make_mesh
+
+    backend = launch.backend_for([device])
+    store = tempfile.mkdtemp(prefix="md_store_", dir=WORK)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(store, 'store')}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device(device) if backend == "nccl" else None)
+    try:
+        mesh = make_mesh()
+        model, state = _md_model(spec, torch.float32, device, batch_group(mesh))
+        step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                               fuse_augmentation=False, group=batch_group(mesh))
+        _, logs = step(state, _md_tensors(spec["batch"], slice(None), device))
+        return {"backend": dist.get_backend(), "loss": logs["loss"].item()}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def md_fit_rank(cfg: Config, exp: str, pod_parity: dict | None, device) -> dict:
+    """fit_model on this rank, recording per epoch what every rank saw
+    (CheckpointManager.save runs on all of them), which ranks wrote
+    checkpoints, and the conv launches; with ``pod_parity`` first every
+    batch of one shuffled epoch from the pod-sharded cache against the
+    replicated cache's."""
+    from floodplanet_code_tpu_torch.parallel import multihost
+
+    saves, writes = [], []
+    save, write = ckpt.CheckpointManager.save, ckpt.CheckpointManager._write
+
+    def saving(self, state, epoch, metrics, force=False):
+        saves.append({"epoch": epoch, "losses": [metrics["train_loss"], metrics["valid_loss"]],
+                      "metric": metrics[ckpt.MONITOR_KEY]})
+        return save(self, state, epoch, metrics, force)
+
+    def writing(self, *args, **kwargs):
+        writes.append(1)
+        return write(self, *args, **kwargs)
+
+    out = {"rank": multihost.process_index()}
+    if pod_parity is not None:
+        out["pod_batches"] = md_pod_parity(pod_parity, device)
+    ckpt.CheckpointManager.save, ckpt.CheckpointManager._write = saving, writing
+    try:
+        sync(device)
+        LAUNCHES.clear()  # the rank's fit starts here
+        out["best"] = train_fit.fit_model(cfg, exp, device=device)
+        sync(device)
+        out["launches"] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+    finally:
+        ckpt.CheckpointManager.save, ckpt.CheckpointManager._write = save, write
+    out["saves"], out["writes"] = saves, len(writes)
+    if out["rank"] == 0:  # the writer of this fit's timing.json
+        with open(os.path.join(exp, "timing.json")) as handle:
+            out["timing"] = json.load(handle)
+    return out
+
+
+def md_pod_parity(spec: dict, device) -> int:
+    """Batches of one shuffled epoch, pod-sharded cache against the
+    replicated one, for this rank's rows: equal (torch.equal); returns
+    their count."""
+    from floodplanet_code_tpu_torch.data.device_cache import (
+        build_device_cache_sharded,
+        cache_batches,
+        make_batch_builder_podsharded,
+    )
+    from floodplanet_code_tpu_torch.parallel.mesh import detect_n_pods, local_rows, make_hybrid_mesh
+
+    mesh = make_hybrid_mesh(detect_n_pods(), 1)
+    tile, batch = spec["tile"], spec["batch"]
+    ds = build_dataset("floodplanet", "train", generate_image_slice_object(tile, tile, stride=tile),
+                       sensor="PS", channels="ALL", root_dir=spec["root"], ignore_index=0,
+                       seed_num=0, train_split_pct=0.8)
+    full = build_device_cache(ds, 6 << 30, device)
+    pod = build_device_cache_sharded(ds, mesh, 6 << 30, device)
+    if not pod.images.shape[0] < full.images.shape[0]:
+        raise AssertionError("the pod-sharded cache holds every scene")
+    order = np.random.default_rng((0, 0)).permutation(len(ds))
+    want = cache_batches(full, ds, batch, order, True,
+                         make_batch_builder(full, local_rows(mesh, batch)))
+    got = cache_batches(pod, ds, batch, order, True,
+                        make_batch_builder_podsharded(pod, mesh, batch))
+    n = 0
+    for (w, _, _), (g, _, _) in zip(want, got):
+        for key in ("image", "target", "mean", "std"):
+            if not (g[key].dtype == w[key].dtype and torch.equal(g[key], w[key])):
+                raise AssertionError(f"pod-sharded batch {n}: {key} differs from the replicated")
+        n += 1
+    return n
+
+
+def _md_rel_checks(name: str, got: dict, want: dict) -> dict:
+    """Phase 8's f32 rule per tensor: the difference's norm within GRAD_TOL
+    of the tensor's norm and its largest element within GRAD_MAX_TOL of
+    the tensor's largest; returns the worst of each."""
+    rels = grad_rels({k: v.float() for k, v in got.items()}, {k: v.float() for k, v in want.items()})
+    worst = {"rel_max": max(r[0] for r in rels.values()),
+             "rel_norm": max(r[1] for r in rels.values())}
+    if not (worst["rel_norm"] <= GRAD_TOL and worst["rel_max"] <= GRAD_MAX_TOL):
+        bad = sorted(rels, key=lambda k: -rels[k][1])[:3]
+        raise AssertionError(f"2 ranks vs 1 rank, {name}: {worst}; worst {bad}")
+    return worst
+
+
+def md_fit_forwards(timing: dict, n_loader: int, n_valid: int, coordinator: bool) -> int:
+    """One rank's forwards in a fit: train steps, validation batches, and
+    on the coordinator the image panels."""
+    epochs = timing["epochs"]
+    steps = sum(e["n_train_batches"] for e in epochs)
+    g0 = epochs[0]["epoch"] * n_loader
+    panels = sum(1 for g in range(g0 + 1, g0 + steps + 1) if g % FIT_LOG_IMAGE_ITER == 0)
+    return steps + len(epochs) * min(MD_LIMIT_VAL, n_valid) + (panels if coordinator else 0)
+
+
+def run_multi_device(card: str, device="cuda") -> dict:
+    """Phase 13: data parallelism on two ranks that share the one card
+    (gloo, which carries CUDA tensors; NCCL refuses two ranks on one
+    device), NCCL with one rank, a 2-rank fit with the replicated and the
+    pod-sharded scene cache and a resume, and ``infer`` over two replicas.
+    ``device="cpu"`` rehearses it at a small size
+    (tests/test_torch_chip_smoke.py): the ranks are CPU ranks, no kernel
+    launches and no device timing then."""
+    from floodplanet_code_tpu_torch.inference.sliding import make_replicated_predict_step
+    from floodplanet_code_tpu_torch.parallel import launch
+
+    on_card = torch.device(device).type == "cuda"
+    dev = str(torch.device(device, 0) if on_card else torch.device("cpu"))
+    data_root = os.path.join(WORK, "md_data")
+    shutil.rmtree(WORK, ignore_errors=True)
+    with Phase("multi-device: write scenes"):
+        write_scenes(data_root, TRAIN_SCENES, seed=1)
+    ds = build_dataset("floodplanet", "train", generate_image_slice_object(TILE, TILE, stride=TILE),
+                       sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0,
+                       seed_num=0, train_split_pct=0.8)
+    batch = next(iter(BatchLoader(ds, MD_BATCH, shuffle=True, n_workers=8)))
+    spec = {"base": BASE, "steps": MD_STEPS, "fixed_steps": MD_FIXED_STEPS, "seed": 3,
+            "n_valid": MD_BATCH - MD_PAD,
+            "batch": {k: batch[k] for k in ("image", "target")}}
+    result = {}
+    with Phase("multi-device: one rank"):
+        one = md_steps(spec, device)
+        sync(device)
+        if on_card:
+            torch.cuda.empty_cache()
+    with Phase("multi-device: NCCL, one rank"):
+        nccl = md_nccl_one_rank(spec, dev)
+    want = "nccl" if on_card else "gloo"
+    if nccl["backend"] != want or not math.isfinite(nccl["loss"]):
+        raise AssertionError(f"one-rank step: backend {nccl['backend']}, loss {nccl['loss']}")
+    result["nccl_one_rank"] = nccl
+
+    # The 2-rank fit on the one device: replicated cache, then a resume to
+    # two more epochs through the pod-sharded cache as 2 pods; and the
+    # same 2 epochs on one rank.
+    exp, exp_one = os.path.join(WORK, "md_exp"), os.path.join(WORK, "md_exp_one")
+    n_valid = len(build_dataset("floodplanet", "valid",
+                                generate_image_slice_object(TILE, TILE, stride=TILE),
+                                sensor="PS", channels="ALL", root_dir=data_root,
+                                ignore_index=0, seed_num=0, train_split_pct=0.8))
+    n_loader, n_valid_batches = len(ds) // TRAIN_BATCH, -(-n_valid // TRAIN_BATCH)
+
+    def md_cfg(path, epochs, *extra):
+        return compose(overrides=fit_overrides(data_root, path, epochs, *extra) + [
+            f"limit_train_batches={MD_LIMIT_TRAIN}", f"limit_val_batches={MD_LIMIT_VAL}",
+            "tpu.resume_every=1"])
+
+    fit_args = {"exp": exp, "replicated": md_cfg(exp, MD_EPOCHS),
+                "pod": md_cfg(exp, 2 * MD_EPOCHS, "tpu.device_cache_shard=pod"),
+                "pod_spec": {"tile": TILE, "batch": TRAIN_BATCH, "root": data_root}}
+    with Phase(f"multi-device: two ranks on one device: the steps, a {MD_EPOCHS}-epoch fit "
+               f"(replicated cache), resumed to {2 * MD_EPOCHS} (pod-sharded cache, 2 pods)"):
+        t0 = time.perf_counter()
+        out = launch.spawn(md_rank, (spec, fit_args), devices=[dev, dev], timeout_s=300,
+                           join_timeout_s=900)
+        result["spawn_s"] = time.perf_counter() - t0
+    result["rank_s"] = out[0]["seconds"]
+    log(f"  rank 0: {({k: round(v, 2) for k, v in out[0]['seconds'].items()})} s of "
+        f"{result['spawn_s']:.2f} s from spawn to join [{card}]")
+    ranks = [r["steps"] for r in out]
+    fits = {k: [r[k] for r in out] for k in ("replicated", "pod")}
+    # The data-parallel step against the one-rank step on the same batch.
+    for r in ranks:
+        loss_rel = _rel(r["f32_losses"][0], one["f32_losses"][0])
+        if not loss_rel <= 1e-4:
+            raise AssertionError(f"2-rank f32 loss {r['f32_losses']} vs 1 rank {one['f32_losses']}")
+        for name in ("grads", "stats1", "params", "stats"):
+            result[f"f32_{name}"] = _md_rel_checks(name, r[name], one[name])
+        if any(not torch.equal(r[k][n], ranks[0][k][n]) for k in ("params", "stats")
+               for n in r[k]):
+            raise AssertionError("the ranks' states differ after the data-parallel steps")
+        eval_rel = _rel(r["eval"]["loss"], one["eval"]["loss"])
+        cells = np.abs(r["eval"]["confusion"] - one["eval"]["confusion"]).sum() / 2
+        if not (eval_rel <= 1e-4 and cells <= 1e-3 * one["eval"]["confusion"].sum()):
+            raise AssertionError(f"2-rank eval step: loss rel {eval_rel:.2e}, {cells} pixels moved")
+        if not r["bf16_losses"][-1] < r["bf16_losses"][0]:
+            raise AssertionError(f"bf16 losses on one batch did not fall: {r['bf16_losses']}")
+    result["f32_loss_rel"] = [max(_rel(r["f32_losses"][k], one["f32_losses"][k]) for r in ranks)
+                              for k in range(MD_STEPS)]
+    result["eval_loss_rel"] = eval_rel
+    result["bf16_losses"] = ranks[0]["bf16_losses"]
+    # The augment step: the ranks' rows of the globally drawn batch, bit for bit.
+    for key in ("image", "target"):
+        if not torch.equal(torch.cat([r["augment"][key] for r in ranks]), one["augment"][key]):
+            raise AssertionError(f"2-rank augment step: {key} differs from the one-rank step")
+    per = MD_BATCH // 2
+    expected = {"eval": 9, "f32_steps": 9 * MD_STEPS, "bf16_steps": 9 * MD_FIXED_STEPS,
+                "augment": 3}
+    if not on_card:
+        expected = {k: 0 for k in expected}
+    for r in ranks + [one]:
+        if r["launches"] != expected:
+            raise AssertionError(f"launches {r['launches']}, expected {expected}")
+    result["launches_per_rank"] = ranks[0]["launches"]
+    launches = {"conv": sum(r["launches"][k] for r in ranks for k in
+                            ("eval", "f32_steps", "bf16_steps")),
+                "shear": sum(r["launches"]["augment"] for r in ranks)}
+    if on_card:
+        result["bf16_step_ms"] = {"one_rank": one["bf16_step_ms"],
+                                  "two_ranks": [r["bf16_step_ms"] for r in ranks]}
+        result["all_reduce_ms"] = {k: [r[k] for r in ranks]
+                                   for k in ("grad_all_reduce_ms", "bn_all_reduce_ms")}
+        log(f"  bf16 step: one rank {one['bf16_step_ms']:.2f} ms per batch of {MD_BATCH}, two "
+            f"ranks {[round(r['bf16_step_ms'], 2) for r in ranks]} ms per {per} rows each; "
+            f"all-reduce alone (gloo, host clock): gradients "
+            f"{[round(r['grad_all_reduce_ms'], 2) for r in ranks]} ms, a BatchNorm's "
+            f"{[round(r['bn_all_reduce_ms'], 3) for r in ranks]} ms [{card}]")
+    log(f"  2 ranks vs 1 (f32, batch {MD_BATCH} = 2 x {per}): loss rel per step "
+        f"{[f'{v:.2e}' for v in result['f32_loss_rel']]}, grads {result['f32_grads']}, params after "
+        f"{MD_STEPS} steps {result['f32_params']}, eval loss rel {eval_rel:.2e}; bf16 losses "
+        f"{[round(v, 4) for v in result['bf16_losses']]}; augment bit-identical; launches "
+        f"per rank {ranks[0]['launches']} [{card}]")
+    del ranks, one
+
+    timing, timing_pod = fits["replicated"][0]["timing"], fits["pod"][0]["timing"]
+    with Phase(f"multi-device: the same {MD_EPOCHS} epochs on one rank"):
+        with watch_checkpoints() as (saves_one, _):
+            train_fit.fit_model(md_cfg(exp_one, MD_EPOCHS), exp_one, device=device)
+    # Side effects: rank 0's alone; every rank saw every epoch.
+    if sorted(os.listdir(exp)) != ["checkpoints", "hydra", "tensorboard_logs", "timing.json"]:
+        raise AssertionError(f"the 2-rank experiment holds {sorted(os.listdir(exp))}")
+    for name, run in fits.items():
+        if run[1]["writes"] != 0 or run[0]["writes"] == 0:
+            raise AssertionError(f"{name} fit: checkpoint writes per rank "
+                                 f"{[r['writes'] for r in run]}; rank 0 alone must write")
+        if run[0]["saves"] != run[1]["saves"] or run[0]["best"] != run[1]["best"]:
+            raise AssertionError(f"{name} fit: the ranks saw different epochs or bests")
+    epochs = [s["epoch"] for r in (fits["replicated"][0], fits["pod"][0]) for s in r["saves"]]
+    if epochs != list(range(2 * MD_EPOCHS)):
+        raise AssertionError(f"the 2-rank fits ran epochs {epochs}")
+    losses = [s["losses"] for r in (fits["replicated"][0], fits["pod"][0]) for s in r["saves"]]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f"non-finite 2-rank fit losses {losses}")
+    one_losses = [s["losses"] for s in saves_one]
+    # The same global batches and draws: bf16 rounding and the sums' order
+    # apart, the same epochs (PERF.md §7: the card's run-to-run spread).
+    fit_rel = max(_rel(a, b) for pa, pb in zip(losses, one_losses) for a, b in zip(pa, pb))
+    if not fit_rel <= 3e-2:
+        raise AssertionError(f"2-rank fit losses {losses[:MD_EPOCHS]} vs 1 rank {one_losses}")
+    pod_batches = [r["pod_batches"] for r in fits["pod"]]
+    fit_launches = {}
+    for name, run, tm in (("replicated", fits["replicated"], timing), ("pod", fits["pod"], timing_pod)):
+        want_l = [9 * md_fit_forwards(tm, n_loader, n_valid_batches, r["rank"] == 0) if on_card
+                  else 0 for r in run]
+        got_l = [r["launches"] for r in run]
+        if got_l != want_l:
+            raise AssertionError(f"{name} fit: conv launches per rank {got_l}, expected {want_l}")
+        fit_launches[name] = got_l
+    launches["conv"] += sum(sum(v) for v in fit_launches.values())
+    result["fit"] = {"losses": losses, "one_rank_losses": one_losses, "loss_rel": fit_rel,
+                     "pod_batches_equal": pod_batches, "launches_per_rank": fit_launches,
+                     "steady_train_tiles_per_s": timing["steady_train_tiles_per_sec"],
+                     "val_iou": [s["metric"] for r in (fits["replicated"][0], fits["pod"][0])
+                                 for s in r["saves"]]}
+    log(f"  2-rank fit: epochs {epochs}, losses {[[round(v, 4) for v in p] for p in losses]} "
+        f"vs one rank {[[round(v, 4) for v in p] for p in one_losses]} (worst rel "
+        f"{fit_rel:.2e}); pod-sharded batches equal the replicated ({pod_batches} per rank); "
+        f"conv launches per rank {fit_launches}; steady train tiles/s "
+        f"{timing['steady_train_tiles_per_sec']} (2 ranks sharing the card) [{card}]")
+
+    # infer over two replicas on the one device against one device.
+    best = fits["pod"][0]["best"]
+    cfg = load_experiment_config(exp)
+    serve_ds = build_infer_dataset(cfg, "floodplanet", "all")
+    model = load_model_for_eval(cfg, best, serve_ds, device)
+    batch_size = int(cfg.tpu.inference_batch_size)
+    probs, seconds = {}, {}
+    for name, step in (("one", None), ("two", make_replicated_predict_step(model, [dev, dev]))):
+        sync(device)
+        t0 = time.perf_counter()
+        probs[name] = {s["image_name"]: s["probabilities"] for s in sliding_window_predict(
+            model, serve_ds, batch_size, n_workers=8, device=device, predict_step=step)}
+        seconds[name] = time.perf_counter() - t0
+    agree = min(float(np.mean(probs["one"][k].argmax(-1) == probs["two"][k].argmax(-1)))
+                for k in probs["one"])
+    dprob = max(float(np.abs(probs["one"][k] - probs["two"][k]).max()) for k in probs["one"])
+    identical = all(np.array_equal(probs["one"][k], probs["two"][k]) for k in probs["one"])
+    if not (agree >= 0.999 and dprob <= DPROB_TOL):
+        raise AssertionError(f"infer over two replicas: argmax agreement {agree}, |dp| {dprob}")
+    with Phase("multi-device: infer over two replicas"):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        paths = infer(cfg, best, "floodplanet", "all", os.path.join(WORK, "md_masks"),
+                      dataset=serve_ds, device=device, devices=[dev, dev])
+        sync(device)
+        infer_launches = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        check_masks(paths, TRAIN_SCENES)
+    want_infer = 9 * 2 * -(-len(serve_ds) // batch_size) if on_card else 0
+    if infer_launches != want_infer:
+        raise AssertionError(f"infer over two replicas: {infer_launches} conv launches, "
+                             f"expected {want_infer}")
+    launches["conv"] += infer_launches
+    result["infer"] = {"argmax_agree": agree, "max_dprob": dprob, "bit_identical": identical,
+                       "tiles_per_s": {k: len(serve_ds) / v for k, v in seconds.items()},
+                       "launches": infer_launches}
+    log(f"  infer over two replicas on one device vs one device: argmax agreement {agree}, "
+        f"max |dp| {dprob:.2e}, bit-identical {identical}; tiles/s (host clock) one "
+        f"{result['infer']['tiles_per_s']['one']:.1f}, two replicas "
+        f"{result['infer']['tiles_per_s']['two']:.1f} [{card}]")
+
+    if on_card and torch.cuda.device_count() >= 2:
+        cards = ["cuda:0", "cuda:1"]
+        with Phase("multi-device: 2-rank fit over NCCL on two cards"):
+            exp2 = os.path.join(WORK, "md_exp_nccl")
+            run = launch.spawn(md_fit_rank, (md_cfg(exp2, MD_EPOCHS), exp2, None),
+                               devices=cards, timeout_s=300, join_timeout_s=900)
+        with open(os.path.join(exp2, "timing.json")) as handle:
+            result["two_cards"] = {"steady_train_tiles_per_s": json.load(handle)[
+                "steady_train_tiles_per_sec"], "losses": [s["losses"] for s in run[0]["saves"]]}
+        t0 = time.perf_counter()
+        infer(cfg, best, "floodplanet", "all", os.path.join(WORK, "md_masks2"),
+              dataset=serve_ds, device=device, devices=cards)
+        result["two_cards"]["infer_tiles_per_s"] = len(serve_ds) / (time.perf_counter() - t0)
+        log(f"  two cards: {result['two_cards']} [{card}]")
+    else:
+        log("multi-device: 2-card runs not run "
+            f"({torch.cuda.device_count() if on_card else 0} card)")
+        result["two_cards"] = None
+    result["launches"] = launches
+    shutil.rmtree(WORK, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2688,6 +3208,8 @@ def main() -> int:
         tools = run_tools(card)
     with Phase("data tools and options"):
         data_tools = run_data_tools(card)
+    with Phase("multi-device"):
+        multi = run_multi_device(card)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -2710,14 +3232,16 @@ def main() -> int:
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
                      + sum(fit["launches"].values()) + sum(evaluation["launches"].values())
                      + sum(tools["launches"].values())
-                     + data_tools["launches"][conv_fused.KERNEL]),
+                     + data_tools["launches"][conv_fused.KERNEL]
+                     + multi["launches"]["conv"]),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
                              "fit": sum(fit["launches"].values()),
                              "evaluation": sum(evaluation["launches"].values()),
                              "tools": sum(tools["launches"].values()),
                              # fused_bn=false and the rest: no kernel on the path
-                             "data_tools": data_tools["launches"][conv_fused.KERNEL]},
+                             "data_tools": data_tools["launches"][conv_fused.KERNEL],
+                             "multi_device": multi["launches"]["conv"]},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -2735,11 +3259,14 @@ def main() -> int:
         "route": "cuda",
         "source": "floodplanet_code_tpu_torch/ops/csrc/rotate.cu",
         "replaces": "floodplanet_code_tpu/ops/rotate.py:193",
-        # 3 per augment step of the training phase; the data-tools phase's
+        # 3 per augment step of the training phase and of each rank's
+        # augment step in the multi-device phase; the data-tools phase's
         # rotations are the roll shear and map_coordinates.
-        "launches": train["launches"][rotate.KERNEL] + data_tools["launches"][rotate.KERNEL],
+        "launches": (train["launches"][rotate.KERNEL] + data_tools["launches"][rotate.KERNEL]
+                     + multi["launches"]["shear"]),
         "launches_by_path": {"training": train["launches"][rotate.KERNEL],
-                             "data_tools": data_tools["launches"][rotate.KERNEL]},
+                             "data_tools": data_tools["launches"][rotate.KERNEL],
+                             "multi_device": multi["launches"]["shear"]},
         # Parity over both shapes, axes, orders and types, and the timed launch.
         "max_abs_err": max(shear_worst[torch.bfloat16][1], shear_worst[torch.float32][1],
                            shear_row["max_abs_err"]),
@@ -2764,6 +3291,7 @@ def main() -> int:
     log(json.dumps({"evaluation": evaluation}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"data_tools": data_tools}))
+    log(json.dumps({"multi_device": {k: v for k, v in multi.items() if k != "launches"}}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -15,8 +15,16 @@ against ~8 MB of pixels for 512^2 crops.
 one dropped or padded. ``build_device_cache`` returns None, after one line
 saying why, when the padded stacks exceed the byte budget or a scene has
 no label raster; the caller then uses the host loader. Any other error
-raises. The JAX package's pod-sharded stacks and builder wait for more
-than one device (ROADMAP.md Queue 1 item 4).
+raises.
+
+More than one rank (``parallel/``): each rank holds the stacks and
+``make_batch_builder(cache, rows)`` gathers only its rows of each global
+batch. ``build_device_cache_sharded`` holds 1/n_pods of the scenes per pod
+instead (the scenes of each pod's slots, loaded by that pod's ranks only),
+and ``make_batch_builder_podsharded`` assembles a batch with one all-reduce
+(sum) over the pod group: every rank crops what its pod owns for the whole
+global batch, zeros elsewhere, and keeps its rows. Each batch equals the
+replicated builder's.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 
 from floodplanet_code_tpu_torch.data.tiling import CropParams
 from floodplanet_code_tpu_torch.device import resolve_device
+from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
+from floodplanet_code_tpu_torch.parallel.mesh import local_rows
 
 
 @dataclass
@@ -44,7 +54,9 @@ class DeviceSceneCache:
     norm_mode: str | None
     global_mean: torch.Tensor | None  # [C] f32 when norm_mode == "global"
     global_std: torch.Tensor | None
-    nbytes: int
+    nbytes: int  # all the stacks, on every device together when pod-sharded
+    device_nbytes: int = 0  # the stacks on this device
+    slot_offset: int = 0  # the global slot of this device's first scene
 
     def index_rows(self, dataset, indices) -> np.ndarray:
         """[len(indices), 5] int32: (scene, h0, w0, h_len, w_len)."""
@@ -62,13 +74,9 @@ class DeviceSceneCache:
         return rows
 
 
-def build_device_cache(
-    dataset, max_bytes: int = 6 << 30, device="cuda", n_workers: int = 4
-) -> DeviceSceneCache | None:
-    """Load every scene of ``dataset`` into stacks on ``device``, reading
-    up to ``n_workers`` scenes at once, or return None (see the module
-    docstring). Raises without a card unless ``device="cpu"``."""
-    device = resolve_device(device)
+def _layout(dataset):
+    """(scene paths, their (h, w), padded h, padded w, channels), or None
+    after a line saying which scene has no label raster."""
     paths = sorted({e.image_path for e in dataset.dataset})
     for path in paths:
         if not os.path.exists(dataset._label_path(path)):
@@ -85,13 +93,12 @@ def build_device_cache(
     n_channels = dataset.n_channels.get(
         "ms_image", next(iter(dataset.n_channels.values()))
     )
-    nbytes = len(paths) * hp * wp * (n_channels * 4 + 4)
-    if nbytes > max_bytes:
-        print(
-            f"[device cache] the padded scene stacks ({nbytes / 1e9:.2f} GB) "
-            f"exceed tpu.device_data_bytes ({max_bytes / 1e9:.2f} GB): host loader"
-        )
-        return None
+    return paths, shapes, hp, wp, n_channels
+
+
+def _load_stacks(dataset, paths, shapes, slots, hp, wp, n_channels, device, n_workers):
+    """The stacks of the scenes at ``slots`` (indices into ``paths``; one
+    past the end is a zero / ignore padding slot)."""
 
     def load(slot: int):
         h, w = shapes[slot]
@@ -100,41 +107,115 @@ def build_device_cache(
         lbl = dataset._load_label_image(dataset._label_path(paths[slot]), cp)
         return np.asarray(chw, np.float32), lbl.astype(np.int32)
 
-    images = torch.zeros((len(paths), hp, wp, n_channels), dtype=torch.float32,
+    images = torch.zeros((len(slots), hp, wp, n_channels), dtype=torch.float32,
                          device=device)
-    labels = torch.full((len(paths), hp, wp), int(dataset.ignore_index),
+    labels = torch.full((len(slots), hp, wp), int(dataset.ignore_index),
                         dtype=torch.int32, device=device)
+    real = [s for s in slots if s < len(paths)]
     # Scenes decode on worker threads (the native reader and numpy release
     # the GIL); each is copied as it comes and turned HWC on the device.
     with ThreadPoolExecutor(max_workers=max(1, n_workers)) as pool:
-        for slot, (chw, lbl) in enumerate(pool.map(load, range(len(paths)))):
-            h, w = shapes[slot]
-            images[slot, :h, :w] = torch.from_numpy(chw).to(device).permute(1, 2, 0)
-            labels[slot, :h, :w] = torch.from_numpy(lbl).to(device)
-    scene_index = {path: slot for slot, path in enumerate(paths)}
+        for k, (chw, lbl) in enumerate(pool.map(load, real)):
+            h, w = shapes[real[k]]
+            images[k, :h, :w] = torch.from_numpy(chw).to(device).permute(1, 2, 0)
+            labels[k, :h, :w] = torch.from_numpy(lbl).to(device)
+    return images, labels
 
-    gm = gs = None
-    if dataset.norm_mode == "global":
-        params = dataset.global_norm_params[dataset.sensor_key]
-        gm = torch.tensor(params["mean"], dtype=torch.float32, device=device)
-        gs = torch.tensor(params["std"], dtype=torch.float32, device=device)
+
+def _global_norm(dataset, device):
+    if dataset.norm_mode != "global":
+        return None, None
+    params = dataset.global_norm_params[dataset.sensor_key]
+    return (torch.tensor(params["mean"], dtype=torch.float32, device=device),
+            torch.tensor(params["std"], dtype=torch.float32, device=device))
+
+
+def build_device_cache(
+    dataset, max_bytes: int = 6 << 30, device="cuda", n_workers: int = 4
+) -> DeviceSceneCache | None:
+    """Load every scene of ``dataset`` into stacks on ``device``, reading
+    up to ``n_workers`` scenes at once, or return None (see the module
+    docstring). Raises without a card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    layout = _layout(dataset)
+    if layout is None:
+        return None
+    paths, shapes, hp, wp, n_channels = layout
+    nbytes = len(paths) * hp * wp * (n_channels * 4 + 4)
+    if nbytes > max_bytes:
+        print(
+            f"[device cache] the padded scene stacks ({nbytes / 1e9:.2f} GB) "
+            f"exceed tpu.device_data_bytes ({max_bytes / 1e9:.2f} GB): host loader"
+        )
+        return None
+    images, labels = _load_stacks(dataset, paths, shapes, range(len(paths)), hp, wp,
+                                  n_channels, device, n_workers)
+    gm, gs = _global_norm(dataset, device)
     return DeviceSceneCache(
         images=images,
         labels=labels,
-        scene_index=scene_index,
-        crop_hw=(ch, cw),
+        scene_index={path: slot for slot, path in enumerate(paths)},
+        crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
         ignore_index=int(dataset.ignore_index),
         norm_mode=dataset.norm_mode,
         global_mean=gm,
         global_std=gs,
         nbytes=int(nbytes),
+        device_nbytes=int(nbytes),
     )
 
 
-def make_batch_builder(cache: DeviceSceneCache):
+def build_device_cache_sharded(
+    dataset, mesh, max_bytes_per_device: int = 6 << 30, device="cuda", n_workers: int = 4,
+) -> DeviceSceneCache | None:
+    """Pod-sharded stacks (JAX ``device_cache.py:141-250``): the scene list,
+    padded to a multiple of the pods with zero / ignore slots that no index
+    row names, split into one block of slots per pod; this rank loads its
+    pod's block only. None (after a line saying why) when a block exceeds
+    the per-device budget or a scene has no label raster."""
+    device = resolve_device(device)
+    if "pod" not in mesh.axis_names:
+        return None
+    layout = _layout(dataset)
+    if layout is None:
+        return None
+    paths, shapes, hp, wp, n_channels = layout
+    n_pods = mesh.shape["pod"]
+    per_pod = -(-len(paths) // n_pods)
+    nbytes = per_pod * n_pods * hp * wp * (n_channels * 4 + 4)
+    if nbytes // n_pods > max_bytes_per_device:
+        print(
+            f"[device cache] a pod's share of the padded scene stacks "
+            f"({nbytes // n_pods / 1e9:.2f} GB) exceeds tpu.device_data_bytes "
+            f"({max_bytes_per_device / 1e9:.2f} GB): host loader"
+        )
+        return None
+    first = mesh.coords["pod"] * per_pod
+    images, labels = _load_stacks(dataset, paths, shapes, range(first, first + per_pod), hp,
+                                  wp, n_channels, device, n_workers)
+    gm, gs = _global_norm(dataset, device)
+    return DeviceSceneCache(
+        images=images,
+        labels=labels,
+        scene_index={path: slot for slot, path in enumerate(paths)},
+        crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
+        ignore_index=int(dataset.ignore_index),
+        norm_mode=dataset.norm_mode,
+        global_mean=gm,
+        global_std=gs,
+        nbytes=int(nbytes),
+        device_nbytes=int(nbytes // n_pods),
+        slot_offset=first,
+    )
+
+
+def make_batch_builder(cache: DeviceSceneCache, rows: slice | None = None):
     """``build(rows [B, 5] int32 numpy) -> {image, target, mean, std}`` on
     the cache's device: image [B, ch, cw, C] f32, target [B, ch, cw] int32,
-    mean and std [B, 1, 1, C] f32, the host loader's batch layout.
+    mean and std [B, 1, 1, C] f32, the host loader's batch layout. ``rows``:
+    only these rows of each batch are built (a rank's rows of a global
+    batch). The index rows' scenes are slots of the cache's stacks less its
+    ``slot_offset``.
 
     Local statistics are summed in f64 over the crop's inside and rounded
     to f32 once, so they sit within an f32 rounding of the host's.
@@ -145,8 +226,10 @@ def make_batch_builder(cache: DeviceSceneCache):
     cols_w = torch.arange(cw, device=device)
     n_channels = int(cache.images.shape[-1])
 
-    def build(rows: np.ndarray) -> dict:
-        r = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32))
+    def build(index_rows: np.ndarray) -> dict:
+        if rows is not None:
+            index_rows = index_rows[rows]
+        r = torch.from_numpy(np.ascontiguousarray(index_rows, dtype=np.int32))
         if device.type == "cuda":
             r = r.pin_memory().to(device, non_blocking=True)
         scene, h0, w0, h_len, w_len = r.long().unbind(1)
@@ -186,12 +269,52 @@ def make_batch_builder(cache: DeviceSceneCache):
     return build
 
 
+def make_batch_builder_podsharded(cache: DeviceSceneCache, mesh, batch_size: int):
+    """``build(rows [B, 5]) -> this rank's rows of the batch`` from a
+    pod-sharded cache (``build_device_cache_sharded``; JAX
+    ``device_cache.py:291-420``): this rank crops, for all B rows, the
+    examples whose scene its pod holds and zeros for the rest; exactly one
+    pod holds each, so one all-reduce (sum) of the four outputs in one f32
+    buffer over the pod group (the labels are small integers, exact in
+    f32) gives every rank the whole batch, and the rank keeps its rows
+    (``mesh.local_rows``)."""
+    crop = make_batch_builder(cache)
+    group = mesh.groups.get("pod")
+    held = int(cache.images.shape[0])
+    lo = cache.slot_offset
+    mine = local_rows(mesh, batch_size)
+    device = cache.images.device
+
+    def build(index_rows: np.ndarray) -> dict:
+        index_rows = np.array(index_rows, dtype=np.int32)
+        owned = (index_rows[:, 0] >= lo) & (index_rows[:, 0] < lo + held)
+        index_rows[:, 0] = np.clip(index_rows[:, 0] - lo, 0, held - 1)
+        out = crop(index_rows)
+        mask = torch.from_numpy(owned)
+        if device.type == "cuda":
+            mask = mask.pin_memory().to(device, non_blocking=True)
+        keys = ("image", "target", "mean", "std")
+        parts = [torch.where(mask.view(-1, *[1] * (out[k].dim() - 1)), out[k], 0)
+                 .to(torch.float32) for k in keys]
+        flat = all_reduce(torch.cat([p.reshape(-1) for p in parts]), group)
+        batch, offset = {}, 0
+        for key, part in zip(keys, parts):
+            value = flat[offset:offset + part.numel()].view_as(part)
+            batch[key] = value[mine].to(out[key].dtype)
+            offset += part.numel()
+        return batch
+
+    return build
+
+
 def cache_batches(cache: DeviceSceneCache, dataset, batch_size: int, order,
-                  drop_last: bool = False):
+                  drop_last: bool = False, build=None):
     """``(batch, indices, n_real)`` for each run of ``batch_size`` dataset
     indices in ``order``: a short final run is dropped (``drop_last``) or
-    padded with index 0 to the fixed batch, its first ``n_real`` rows real."""
-    build = make_batch_builder(cache)
+    padded with index 0 to the fixed batch, its first ``n_real`` rows real.
+    ``build``: the builder of the batches from the run's index rows
+    (default ``make_batch_builder(cache)``, every row)."""
+    build = build or make_batch_builder(cache)
     for start in range(0, len(order), batch_size):
         idx = np.asarray(order[start : start + batch_size])
         n_real = len(idx)

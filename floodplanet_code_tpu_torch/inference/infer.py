@@ -31,9 +31,10 @@ import numpy as np
 
 from floodplanet_code_tpu_torch.config import load_experiment_config
 from floodplanet_code_tpu_torch.data import build_dataset, generate_image_slice_object
-from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference.sliding import (
+    inference_devices,
+    make_replicated_predict_step,
     resolve_inference_batch_size,
     sliding_window_predict,
 )
@@ -131,6 +132,7 @@ def infer(
     dataset=None,
     device="cuda",
     predict_step=None,
+    devices=None,
 ) -> list[str]:
     """Run inference and export masks; returns the written mask paths.
 
@@ -141,20 +143,29 @@ def infer(
     exported program, tools/export_model.py; see
     ``sliding_window_predict``): no model is loaded. ``dataset``: a
     pre-built dataset for the same cfg/split (see ``build_infer_dataset``).
-    Raises without a card unless ``device="cpu"``.
+    ``devices``: run on a replica per device (``["cuda:0", "cuda:1"]``, or
+    one card twice), each batch split over them
+    (``make_replicated_predict_step``); without it, ``tpu.n_devices``
+    devices, else ``device`` alone (``inference_devices``). Raises without
+    a card unless ``device="cpu"``.
     """
-    device = resolve_device(device)
+    devices = inference_devices(cfg, device, devices)
+    device = devices[0]
+    if predict_step is not None and len(devices) > 1:
+        raise ValueError("an exported program runs on one device: pin tpu.n_devices to 1")
     if dataset is None:
         dataset = build_infer_dataset(cfg, dataset_name, split, eval_region)
     model = warm
     if model is None and predict_step is None:
         model = load_model_for_eval(cfg, weights_path, dataset, device)
+    if len(devices) > 1:
+        predict_step = make_replicated_predict_step(model, devices, tta)
 
     written = []
     for scene in sliding_window_predict(
         model,
         dataset,
-        batch_size=resolve_inference_batch_size(cfg),
+        batch_size=resolve_inference_batch_size(cfg, len(devices)),
         n_workers=n_workers or cfg.n_workers,
         device=device,
         tta=tta,

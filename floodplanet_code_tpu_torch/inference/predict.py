@@ -44,10 +44,11 @@ import torch
 
 from floodplanet_code_tpu_torch.config import load_experiment_config
 from floodplanet_code_tpu_torch.data import build_dataset, generate_image_slice_object
-from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference.infer import load_model_for_eval
 from floodplanet_code_tpu_torch.inference.sliding import (
+    inference_devices,
+    make_replicated_predict_step,
     resolve_inference_batch_size,
     sliding_window_predict,
 )
@@ -140,6 +141,7 @@ def predict(
     device="cuda",
     timing: dict | None = None,
     on_scene=None,
+    devices=None,
 ) -> dict:
     """Evaluate a checkpoint; returns the aggregate metrics dict (also
     written to ``metrics.json``).
@@ -158,9 +160,12 @@ def predict(
     the writers), ``scenes``, ``tiles`` and ``batches``. ``on_scene``: called as
     ``on_scene(scene, pred_class, confusion)`` for every scene after its
     metrics (the sliding-window result dict, its argmax map and its [C, C]
-    confusion matrix). Raises without a card unless ``device="cpu"``.
+    confusion matrix). ``devices``: a replica of the model per device, each
+    batch split over them, as ``infer`` takes it (``inference_devices``).
+    Raises without a card unless ``device="cpu"``.
     """
-    device = resolve_device(device)
+    devices = inference_devices(cfg, device, devices)
+    device = devices[0]
     t_start = time.perf_counter()
     slice_params = generate_image_slice_object(cfg.crop_height, cfg.crop_width, cfg.crop_stride)
     if eval_region:
@@ -183,7 +188,7 @@ def predict(
     n_classes = eval_dataset.n_classes
     ignore_index = resolve_ignore_index(cfg.ignore_index, n_classes)
     model = load_model_for_eval(cfg, checkpoint_path, eval_dataset, device)
-    batch_size = resolve_inference_batch_size(cfg)
+    batch_size = resolve_inference_batch_size(cfg, len(devices))
 
     ckpt_name = os.path.basename(os.path.normpath(checkpoint_path))
     region_key = (
@@ -220,6 +225,8 @@ def predict(
         collect_extras=True,
         per_crop_ignore_index=ignore_index if per_crop_stats else None,
         forward_events=events,
+        predict_step=make_replicated_predict_step(model, devices, tta) if len(devices) > 1
+        else None,
     )
 
     def drain(futures) -> None:

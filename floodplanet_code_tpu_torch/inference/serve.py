@@ -140,6 +140,9 @@ class InferenceService:
                 run_cfg.batch_size = int(shape[0])
                 run_cfg.crop_height, run_cfg.crop_width = int(shape[1]), int(shape[2])
                 run_cfg.tpu["inference_batch_size"] = int(shape[0])
+                # An exported program is a single-device program: the
+                # artifact pins serving to one device (JAX serve.py:157-166).
+                run_cfg.tpu["n_devices"] = 1
             # The probe is infer()'s own dataset (non-overlapping tiles over
             # this root); it also decides the model's shape.
             probe = build_infer_dataset(run_cfg, dataset_name, split, root_dir=root)

@@ -15,10 +15,16 @@
 Yields host numpy canvases per scene for the CLIs to export/report on; for
 ``predict`` also the stitched input and label canvases and per-crop
 confusion matrices.
+
+More than one device stays one process: ``make_replicated_predict_step``
+runs a replica of the model on each device of a list, each batch split in
+equal parts that launch on their devices without a sync between them, and
+gathers the probabilities to the first device, where the stitcher lives.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import os
 from typing import Callable, Iterator
@@ -109,11 +115,75 @@ def make_predict_step(model, tta: bool = False) -> Callable:
     return predict_step
 
 
-def resolve_inference_batch_size(cfg) -> int:
-    """``tpu.inference_batch_size`` when set, else the training
-    ``batch_size`` (one card: no rounding to a device multiple)."""
+def replicate(model, devices) -> list:
+    """A replica of ``model`` on each of ``devices``: the model itself on
+    the first, when it is there, and a copy on every other."""
+    first = next(model.parameters()).device
+    return [model if k == 0 and d == first else copy.deepcopy(model).to(d)
+            for k, d in enumerate(devices)]
+
+
+def split_apply(fns, devices, batch: dict) -> list:
+    """``fns[k]`` on part k of ``batch``'s rows, copied to ``devices[k]``:
+    the rows split in ``len(devices)`` equal parts, and every part launched
+    before any result is gathered. Returns the parts' results, each on its
+    device. The batch must split evenly (``split_batch_size``)."""
+    n = len(devices)
+    rows = int(batch["image"].shape[0])
+    if rows % n:
+        raise ValueError(f"a batch of {rows} does not split over {n} devices")
+    per = rows // n
+    return [fn({k: v[i * per:(i + 1) * per].to(d, non_blocking=True) for k, v in batch.items()})
+            for i, (d, fn) in enumerate(zip(devices, fns))]
+
+
+def make_replicated_predict_step(model, devices, tta: bool = False) -> Callable:
+    """``predict_step(batch) -> probabilities`` over a replica of ``model``
+    on each of ``devices`` (``replicate``): each device's share of the
+    batch's rows runs there (``split_apply``), and the probabilities are
+    concatenated on ``devices[0]``."""
+    devices = [torch.device(d) for d in devices]
+    steps = [make_predict_step(m, tta) for m in replicate(model, devices)]
+
+    def predict_step(batch: dict) -> torch.Tensor:
+        return torch.cat([p.to(devices[0], non_blocking=True)
+                          for p in split_apply(steps, devices, batch)])
+
+    return predict_step
+
+
+def inference_devices(cfg, device="cuda", devices=None) -> list[torch.device]:
+    """The devices an inference call runs on: ``devices`` when given, else
+    ``tpu.n_devices`` of ``device``'s type (``mesh.device_list``: raises
+    when fewer cards are present), else ``device`` alone. The JAX package
+    takes every device when ``tpu.n_devices`` is unset; the port's entry
+    points run on the one device they are given unless asked for more."""
+    if devices:
+        return [resolve_device(d) for d in devices]
+    n = int(cfg.select("tpu.n_devices") or 1)
+    if n > 1:
+        from floodplanet_code_tpu_torch.parallel.mesh import device_list
+
+        return [resolve_device(d) for d in device_list(n, device)]
+    return [resolve_device(device)]
+
+
+def resolve_inference_batch_size(cfg, n_devices: int = 1) -> int:
+    """Inference batch size: ``tpu.inference_batch_size`` when set, else
+    the training ``batch_size``; rounded down to a multiple of
+    ``n_devices`` and up to at least one tile per device (JAX
+    ``inference/sliding.py:166-181``)."""
     batch_size = int(cfg.select("tpu.inference_batch_size", 0) or 0)
-    return batch_size if batch_size > 0 else int(cfg.batch_size)
+    if batch_size <= 0:
+        batch_size = int(cfg.batch_size)
+    return split_batch_size(batch_size, n_devices)
+
+
+def split_batch_size(batch_size: int, n_devices: int) -> int:
+    """``batch_size`` rounded down to a multiple of ``n_devices``, and up
+    to at least one row per device."""
+    batch_size = max(int(batch_size), n_devices)
+    return batch_size - batch_size % n_devices
 
 
 def _to_model_layout(batch: dict) -> dict:

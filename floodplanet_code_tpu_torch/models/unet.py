@@ -24,6 +24,10 @@ Port choices:
   cast back to f32, as the flax ``dtype``/``param_dtype`` split does.
 - Activations are NCHW tensors in ``channels_last`` memory (NHWC), the
   layout the fused kernel reads.
+- ``bn_group`` (``set_bn_group``; the JAX ``bn_axis_name``): train-mode
+  BatchNorm takes its statistics over a process group's whole batch
+  (SyncBN, ops/batchnorm.py), in all three forms (the fused pair's BN_0,
+  ``bn_relu_train``, the flax BatchNorm). Eval mode never reads it.
 - ``conv_impl='pallas_fused'`` (the JAX config's name, kept so experiment
   configs load unchanged) runs every DoubleConv's middle BN -> ReLU -> conv
   boundary as one hand-written CUDA kernel (ops/conv_fused.py) on all nine
@@ -70,12 +74,14 @@ class BatchNormReLU(nn.Module):
 
     Parameters ``scale``/``bias`` and buffers ``mean``/``var`` carry the flax
     names, so the weight bridge (tools/import_jax_params.py) maps 1:1. In
-    train mode every forward moves the running statistics in place.
+    train mode every forward moves the running statistics in place, from
+    statistics over ``group``'s whole batch when it is set (SyncBN).
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
+        self.group = None  # a torch.distributed group: SyncBN (set_bn_group)
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -106,7 +112,7 @@ class BatchNormReLU(nn.Module):
         kernel). The statistics are plain differentiable reductions, so the
         gradient reaches y through them as well (models/unet.py:60-78 of
         the JAX package); the running update is detached."""
-        mean, m2 = batch_stats(y)
+        mean, m2 = batch_stats(y, self.group)
         var = torch.clamp_min(m2 - mean * mean, 0.0)
         self._update_running(mean.detach(), var.detach())
         inv = torch.rsqrt(var + self.epsilon)
@@ -114,7 +120,7 @@ class BatchNormReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            z, mean, var = bn_relu_train(x, self.scale, self.bias, self.epsilon)
+            z, mean, var = bn_relu_train(x, self.scale, self.bias, self.epsilon, self.group)
             self._update_running(mean, var)
             return z
         a, b = self.fold()
@@ -139,7 +145,7 @@ class FlaxBatchNormReLU(BatchNormReLU):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, m2 = batch_stats(x)
+            mean, m2 = batch_stats(x, self.group)
             var = torch.clamp_min(m2 - mean * mean, 0.0)
             self._update_running(mean.detach(), var.detach())
         else:
@@ -148,6 +154,15 @@ class FlaxBatchNormReLU(BatchNormReLU):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
         return F.relu(y.to(x.dtype))
+
+
+def set_bn_group(model: nn.Module, group) -> nn.Module:
+    """Take every train-mode BatchNorm's statistics over ``group``'s whole
+    batch (None: this process's batch alone); returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, BatchNormReLU):
+            module.group = group
+    return model
 
 
 class DoubleConv(nn.Module):

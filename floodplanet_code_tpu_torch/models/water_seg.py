@@ -21,7 +21,13 @@ import torch
 from torch import nn
 
 from floodplanet_code_tpu_torch.device import resolve_device
-from floodplanet_code_tpu_torch.models.unet import UNet, UNetDecoder, UNetEncoder, _conv
+from floodplanet_code_tpu_torch.models.unet import (
+    UNet,
+    UNetDecoder,
+    UNetEncoder,
+    _conv,
+    set_bn_group,
+)
 
 # Fixed aux-feature ordering (reference ef_model.py:28-44 checks in this order).
 AUX_FEATURE_KEYS = ("dem", "slope", "preflood", "pre_post_difference", "hand")
@@ -131,7 +137,15 @@ _SAME_FUNCTION_KWARGS = ("pool_impl", "upsample_impl")
 
 def resolve_conv_impl(cfg) -> str:
     """The DoubleConv implementation from config: ``tpu.conv_impl``, forced
-    to ``xla`` by ``tpu.use_pallas: false`` (the JAX package's contract)."""
+    to ``xla`` by ``tpu.use_pallas: false`` (the JAX package's contract).
+
+    ``pallas_fused`` stays on under more than one device. The JAX package
+    forces ``xla`` there (its ``resolve_conv_impl``) because GSPMD has no
+    partitioning rule for a ``pallas_call`` and would all-gather the
+    activation around it. Under ``torch.distributed`` nothing is
+    partitioned: each rank runs the whole forward on its own rows, and the
+    function per sample is the one the fused kernel computes on one
+    device."""
     if not cfg.select("tpu.use_pallas", True):
         return "xla"
     return cfg.select("tpu.conv_impl", "xla")
@@ -149,6 +163,7 @@ def build_model(
     n_classes: int,
     dtype: torch.dtype = torch.float32,
     device="cuda",
+    bn_group=None,
     **model_kwargs,
 ) -> nn.Module:
     """Model factory: an eval-mode model with f32 params on ``device``.
@@ -159,7 +174,10 @@ def build_model(
     flax's BatchNorm rounding with the fused conv pair off
     (``models/unet.py::FlaxBatchNormReLU``). ``optimizer_name`` and the
     JAX-only implementation choices ``pool_impl``/``upsample_impl`` are
-    accepted and ignored. Raises without a card unless ``device="cpu"``.
+    accepted and ignored. ``bn_group`` (the JAX ``bn_axis_name``): a
+    ``torch.distributed`` group over which train-mode BatchNorm takes its
+    statistics (SyncBN, ``set_bn_group``). Raises without a card unless
+    ``device="cpu"``.
     """
     device = resolve_device(device)
     model_kwargs = dict(model_kwargs)
@@ -178,5 +196,5 @@ def build_model(
         n_in = sum(in_channels.values())
     else:
         n_in = in_channels["ms_image"]
-    model = model_cls(n_in, n_classes, dtype=dtype, **model_kwargs)
+    model = set_bn_group(model_cls(n_in, n_classes, dtype=dtype, **model_kwargs), bn_group)
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -5,11 +5,27 @@ targets are integer class maps ``[B, H, W]``. Every loss is computed in f32
 and drops the pixels whose target is ``ignore_index`` or lies outside
 ``[0, n_classes)`` (e.g. the raw -1 nodata sentinel), and is 0, not NaN,
 when no pixel is left.
+
+``group``: the losses of a data-parallel step (``parallel/shard_step.py``).
+Each rank holds its rows of the batch; the sums a loss divides (numerator,
+pixel count or weight, Dice's intersection and union) are summed over the
+group through ``global_with_local_grad`` (``group=None``: no sum), so every rank gets the loss of the
+whole batch, exactly, even when ranks hold unequal numbers of ignored
+pixels (JAX ``ops/losses.py:73-76``), and its backward reaches only this
+rank's pixels. The step sums the gradients over the group once.
 """
 
 from __future__ import annotations
 
 import torch
+
+from floodplanet_code_tpu_torch.parallel.collectives import global_with_local_grad
+
+
+def _global(local: torch.Tensor, group) -> torch.Tensor:
+    """``local`` summed over ``group`` (None: this rank alone), with the
+    gradient of ``local``."""
+    return local if group is None else global_with_local_grad(local, group)
 
 
 def _valid_and_target(logits, target, ignore_index, sample_weight):
@@ -34,6 +50,7 @@ def cross_entropy_ignore(
     target: torch.Tensor,
     ignore_index: int | None = None,
     sample_weight: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Mean softmax cross entropy over the pixels that count.
 
@@ -43,8 +60,9 @@ def cross_entropy_ignore(
     log_probs = torch.log_softmax(logits.float(), dim=1)
     valid, safe = _valid_and_target(logits, target, ignore_index, sample_weight)
     picked = _pick(log_probs, safe)
-    total = valid.sum()
-    loss = -(picked * valid).sum() / torch.clamp_min(total, 1.0)
+    total = _global(valid.sum(), group)
+    numerator = _global(-(picked * valid).sum(), group)
+    loss = numerator / torch.clamp_min(total, 1.0)
     return torch.where(total > 0, loss, torch.zeros_like(loss))
 
 
@@ -54,6 +72,7 @@ def weighted_cross_entropy(
     class_weights: torch.Tensor,
     ignore_index: int | None = None,
     sample_weight: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """CE with per-class weights, normalized by the summed weights of the
     pixels that count (torch CrossEntropyLoss(weight=...) semantics).
@@ -63,8 +82,9 @@ def weighted_cross_entropy(
     picked = _pick(log_probs, safe)
     weights = torch.as_tensor(class_weights, dtype=torch.float32, device=logits.device)
     w = weights[safe] * valid
-    total_w = w.sum()
-    loss = -(picked * w).sum() / torch.clamp_min(total_w, 1e-8)
+    total_w = _global(w.sum(), group)
+    numerator = _global(-(picked * w).sum(), group)
+    loss = numerator / torch.clamp_min(total_w, 1e-8)
     return torch.where(total_w > 0, loss, torch.zeros_like(loss))
 
 
@@ -74,6 +94,7 @@ def dice_loss(
     ignore_index: int | None = None,
     sample_weight: torch.Tensor | None = None,
     eps: float = 1.0,
+    group=None,
 ) -> torch.Tensor:
     """Soft multi-class Dice loss over the pixels that count. logits NCHW."""
     n_classes = logits.shape[1]
@@ -83,7 +104,7 @@ def dice_loss(
     onehot = onehot * valid.unsqueeze(1)
     probs = probs * valid.unsqueeze(1)
     axes = (0, 2, 3)
-    intersection = (probs * onehot).sum(dim=axes)
-    union = probs.sum(dim=axes) + onehot.sum(dim=axes)
+    intersection = _global((probs * onehot).sum(dim=axes), group)
+    union = _global(probs.sum(dim=axes) + onehot.sum(dim=axes), group)
     dice = (2.0 * intersection + eps) / (union + eps)
     return 1.0 - dice.mean()

@@ -6,12 +6,15 @@
 ``ignore_index`` or outside ``[0, C)`` are dropped; a prediction of the
 ignored class on a counted pixel still counts as an error. The metrics
 follow torchmetrics' micro averaging (see ``compute_metrics``). Logits are
-NCHW.
+NCHW. ``group``: the matrix of a data-parallel step, summed over the
+group (each rank holds its rows of the batch): the exact global tally.
 """
 
 from __future__ import annotations
 
 import torch
+
+from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
 
 
 def confusion_from_preds(
@@ -60,11 +63,13 @@ def confusion_from_logits(
     target: torch.Tensor,
     ignore_index: int | None = None,
     sample_weight: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Confusion matrix from NCHW logits [B, n_classes, H, W]."""
-    return confusion_from_preds(
+    confusion = confusion_from_preds(
         logits.argmax(dim=1), target, logits.shape[1], ignore_index, sample_weight
     )
+    return confusion if group is None else all_reduce(confusion, group)
 
 
 def compute_metrics(

@@ -36,10 +36,15 @@ import torch
 
 from floodplanet_code_tpu_torch.config import load_experiment_config
 from floodplanet_code_tpu_torch.data import BatchLoader, device_prefetch
-from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.inference.infer import (
     build_experiment_dataset,
     load_model_for_eval,
+)
+from floodplanet_code_tpu_torch.inference.sliding import (
+    inference_devices,
+    replicate,
+    split_apply,
+    split_batch_size,
 )
 from floodplanet_code_tpu_torch.models.water_seg import AUX_FEATURE_KEYS
 from floodplanet_code_tpu_torch.ops.metrics import (
@@ -104,9 +109,13 @@ def evaluate_ensemble(
     split: str = "valid",
     batch_size: int | None = None,
     device="cuda",
+    devices=None,
 ) -> dict:
     """Evaluate the softmax-average ensemble of the members' best
-    checkpoints. Raises without a card unless ``device="cpu"``."""
+    checkpoints. ``devices``: every member replicated to each device, each
+    batch split over them (JAX ``eval_ensemble.py:115-179``;
+    ``inference_devices``). Raises without a card unless
+    ``device="cpu"``."""
     if len(member_dirs) < 2:
         raise ValueError("an ensemble needs at least 2 members")
 
@@ -120,9 +129,9 @@ def evaluate_ensemble(
             raise ValueError(
                 f"member {exp_dir} was trained on a different fold than {exp_dirs[0]}: {diff}"
             )
-    device = resolve_device(device)
-
     cfg = cfgs[0]
+    devices = inference_devices(cfg, device, devices)
+    device = devices[0]
     dataset = build_experiment_dataset(cfg, split)
     ignore_index = resolve_ignore_index(cfg.ignore_index, dataset.n_classes)
 
@@ -132,6 +141,17 @@ def evaluate_ensemble(
         print(f"[ensemble] restoring member: {ckpt}", flush=True)
         models.append(load_model_for_eval(exp_cfg, ckpt, dataset, device))
     print(f"[ensemble] {len(models)} members restored; evaluating on '{split}'", flush=True)
+    # Per device, a replica of every member (the members themselves on the
+    # first).
+    replicas = list(zip(*(replicate(m, devices) for m in models)))
+
+    def member_logits(model_batch) -> list:
+        """Each member's logits of the batch, its rows split over the
+        devices (``split_apply``) and gathered to the first."""
+        parts = split_apply([lambda b, ms=ms: [m(b) for m in ms] for ms in replicas], devices,
+                            model_batch)
+        return [torch.cat([p[j].to(device, non_blocking=True) for p in parts])
+                for j in range(len(models))]
 
     @torch.inference_mode()
     def eval_step(batch):
@@ -141,8 +161,7 @@ def evaluate_ensemble(
                 model_batch[key] = batch[key].permute(0, 3, 1, 2)
         valid = batch["valid"].float()[:, None, None]
         probs, member_cms = 0.0, []
-        for model in models:
-            logits = model(model_batch)
+        for logits in member_logits(model_batch):
             probs = probs + torch.softmax(logits.float(), dim=1)
             member_cms.append(confusion_from_logits(logits, batch["target"], ignore_index,
                                                     sample_weight=valid))
@@ -152,7 +171,8 @@ def evaluate_ensemble(
                                             ignore_index, sample_weight=valid)
         return ensemble_cm, member_cms
 
-    loader = BatchLoader(dataset, batch_size=int(batch_size or cfg.batch_size), shuffle=False,
+    eval_batch = split_batch_size(batch_size or cfg.batch_size, len(devices))
+    loader = BatchLoader(dataset, batch_size=eval_batch, shuffle=False,
                          n_workers=cfg.n_workers, drop_last=False, pad_final=True)
     n_classes = dataset.n_classes
     ensemble_cm = torch.zeros((n_classes, n_classes), device=device)

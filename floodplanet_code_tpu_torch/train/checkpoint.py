@@ -14,8 +14,16 @@ package's: one directory per entry under ``<exp>/checkpoints``, named
 A slim entry (a top-k epoch that is not a resume point) leaves out
 "optimizer" and carries ``slim_checkpoint.json``. ``index.json`` lists the
 kept entries and the latest full one. Tensors are written from host copies.
-Saving from more than one process waits for more than one device
-(ROADMAP.md Queue 1 item 4).
+
+More than one process (JAX ``:105``, ``:128-142``, ``:248``): the state is
+the same on every rank, so rank 0 alone decides and writes, synchronously,
+and ``save`` returns at once on the other ranks. Every rank reads the index
+from the shared directory only after a barrier that follows rank 0's
+write (``_settled_index``: ``fit_model`` holds one after every save), so
+``best_model_path``, ``latest_model_path`` and ``latest_epoch`` agree on
+every rank, and every rank restores from that directory. ``index.json``
+is replaced whole (a temporary file renamed over it): no reader sees it
+half written.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
+from floodplanet_code_tpu_torch.parallel import multihost
 from floodplanet_code_tpu_torch.train.state import TrainState
 
 MONITOR_KEY = "val_MulticlassJaccardIndex"
@@ -69,7 +78,9 @@ class CheckpointManager:
     host. At most one write is in flight: ``save`` drains the previous one
     first, which also re-raises its error at the save site. Every reader
     of the index (``best_model_path``, ``latest_model_path``,
-    ``latest_epoch``, ``restore``) drains pending writes first.
+    ``latest_epoch``, ``restore``) drains pending writes first. Under more
+    than one process the save is synchronous and rank 0's alone (module
+    docstring).
     """
 
     def __init__(
@@ -81,7 +92,10 @@ class CheckpointManager:
         resume_every: int = 1,
     ):
         self.ckpt_dir = os.path.join(os.path.abspath(exp_dir), "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self._multi = multihost.process_count() > 1
+        self._coordinator = multihost.is_coordinator()
+        if self._coordinator:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.save_top_k = save_top_k
         self.monitor = monitor
         self.resume_every = max(1, int(resume_every))
@@ -89,7 +103,7 @@ class CheckpointManager:
         self._index = self._load_index()
         self._executor = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
-            if async_save
+            if async_save and not self._multi
             else None
         )
         self._pending: list[Future] = []
@@ -101,9 +115,20 @@ class CheckpointManager:
                 return json.load(handle)
         return {"entries": [], "latest": None}
 
+    def _settled_index(self) -> dict:
+        """The index every process agrees on: re-read from the shared
+        directory under more than one process (only rank 0 keeps
+        ``self._index`` up to date; the other ranks read after the barrier
+        that follows its write); the in-memory index otherwise."""
+        if self._multi:
+            self._index = self._load_index()
+        return self._index
+
     def _write_index(self) -> None:
-        with open(self._index_path, "w") as handle:
+        tmp = self._index_path + ".tmp"
+        with open(tmp, "w") as handle:
             json.dump(self._index, handle, indent=2)
+        os.replace(tmp, self._index_path)
 
     def _entry_name(self, epoch: int, metric: float) -> str:
         # Filename pattern mirrors the reference's ModelCheckpoint template.
@@ -120,7 +145,7 @@ class CheckpointManager:
         metric is usually low and would let nearly every epoch in.
         """
         is_resume_point = force or epoch % self.resume_every == 0
-        top = sorted((e["metric"] for e in self._index["entries"]), reverse=True)[
+        top = sorted((e["metric"] for e in self._settled_index()["entries"]), reverse=True)[
             : self.save_top_k
         ]
         enters_topk = len(top) < self.save_top_k or metric > top[-1]
@@ -138,8 +163,11 @@ class CheckpointManager:
         (``_save_kind``; ``force=True``, the fit's final epoch, always
         writes, so a completed run has a latest for the no-op re-run).
         Async mode returns once the write is queued; the path exists when
-        the worker has written it.
+        the worker has written it. A rank other than the coordinator
+        returns None at once: it neither reads nor writes the index here.
         """
+        if not self._coordinator:
+            return None
         metric = float(lookup_metric(metrics, self.monitor, 0.0))
         name = self._entry_name(epoch, metric)
         path = os.path.join(self.ckpt_dir, name)
@@ -211,25 +239,28 @@ class CheckpointManager:
     @property
     def best_model_path(self) -> str | None:
         self.wait_until_finished()
-        if not self._index["entries"]:
+        index = self._settled_index()
+        if not index["entries"]:
             return None
-        best = max(self._index["entries"], key=lambda e: e["metric"])
+        best = max(index["entries"], key=lambda e: e["metric"])
         return os.path.join(self.ckpt_dir, best["name"])
 
     @property
     def latest_model_path(self) -> str | None:
         self.wait_until_finished()
-        if self._index["latest"] is None:
+        index = self._settled_index()
+        if index["latest"] is None:
             return None
-        return os.path.join(self.ckpt_dir, self._index["latest"])
+        return os.path.join(self.ckpt_dir, index["latest"])
 
     @property
     def latest_epoch(self) -> int | None:
         self.wait_until_finished()
-        if self._index["latest"] is None:
+        index = self._settled_index()
+        if index["latest"] is None:
             return None
-        for entry in self._index["entries"]:
-            if entry["name"] == self._index["latest"]:
+        for entry in index["entries"]:
+            if entry["name"] == index["latest"]:
                 return entry["epoch"]
         return None
 

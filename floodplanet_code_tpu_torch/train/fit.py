@@ -1,7 +1,7 @@
 """Training entry point and steps: the port of
 ``floodplanet_code_tpu/train/fit.py``.
 
-- ``fit_model(cfg)``: the epoch loop on one device (reference fit.py:16-103):
+- ``fit_model(cfg)``: the epoch loop (reference fit.py:16-103):
   datasets and loaders, the model, the train state, resume from the
   latest checkpoint, per epoch the augment step then the train step over
   the HBM scene cache (``data/device_cache.py``) or the host loader,
@@ -17,6 +17,13 @@
   (``valid`` = 0) masked out, on the EMA parameters when the state has them.
 - ``tpu.debug_nans``: the counterpart of ``jax_debug_nans``
   (``raise_on_nan``), scoped to the fit.
+- More than one device (``tpu.n_devices`` > 1, a ``tpu.multihost`` block
+  or a launcher's environment): one process per device
+  (``parallel/launch.py``, ``parallel/multihost.py``); each rank loads its
+  rows of every global batch, augments them with the global batch's draws,
+  and runs the data-parallel steps (``group``: SyncBN, the global loss, one
+  gradient all-reduce, the global confusion; ``parallel/shard_step.py``).
+  Only rank 0 writes the experiment directory, checkpoints and TensorBoard.
 
 Batches are dicts of tensors in the loader's layout: ``image`` [B,H,W,C],
 ``target`` [B,H,W] int, ``valid`` [B] bool, optional aux rasters
@@ -44,10 +51,18 @@ from floodplanet_code_tpu_torch.data import (
     device_prefetch,
     generate_image_slice_object,
 )
-from floodplanet_code_tpu_torch.data.augment import TransformParams, augment_batch
+from floodplanet_code_tpu_torch.data.augment import (
+    TransformParams,
+    apply_augmentation,
+    augment_batch,
+    draw_augmentation,
+)
 from floodplanet_code_tpu_torch.data.device_cache import (
     build_device_cache,
+    build_device_cache_sharded,
     cache_batches,
+    make_batch_builder,
+    make_batch_builder_podsharded,
 )
 from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.models import (
@@ -67,8 +82,19 @@ from floodplanet_code_tpu_torch.ops.metrics import (
     confusion_from_logits,
     torchmetrics_key_names,
 )
+from floodplanet_code_tpu_torch.parallel import collectives, launch, multihost
+from floodplanet_code_tpu_torch.parallel.mesh import (
+    batch_group,
+    detect_n_pods,
+    device_list,
+    local_rows,
+    make_hybrid_mesh,
+    make_mesh,
+    n_batch_shards,
+    replicate_state,
+)
 from floodplanet_code_tpu_torch.train.checkpoint import MONITOR_KEY, CheckpointManager
-from floodplanet_code_tpu_torch.train.logging import log_image_panel, open_writer
+from floodplanet_code_tpu_torch.train.logging import NullWriter, log_image_panel, open_writer
 from floodplanet_code_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -84,9 +110,10 @@ def resolve_ignore_index(ignore_index: int, n_classes: int) -> int:
     return ignore_index
 
 
-def make_loss_fn(loss_cfg, ignore_index: int):
+def make_loss_fn(loss_cfg, ignore_index: int, group=None):
     """Loss factory: ce | weighted_ce | ce_dice (conf key ``loss``);
-    returns loss(logits NCHW, target)."""
+    returns loss(logits NCHW, target). ``group``: the loss of the group's
+    whole batch (ops/losses.py)."""
     name = "ce"
     class_weights = None
     dice_weight = 0.5
@@ -100,21 +127,22 @@ def make_loss_fn(loss_cfg, ignore_index: int):
         else None
     )
     if name == "ce":
-        return lambda logits, target: cross_entropy_ignore(logits, target, ignore_index)
+        return lambda logits, target: cross_entropy_ignore(logits, target, ignore_index,
+                                                           group=group)
     if name == "weighted_ce":
         if weights is None:
             raise ValueError("loss.name=weighted_ce requires loss.class_weights")
         return lambda logits, target: weighted_cross_entropy(
-            logits, target, weights, ignore_index
+            logits, target, weights, ignore_index, group=group
         )
     if name == "ce_dice":
 
         def ce_dice(logits, target):
             if weights is not None:
-                ce = weighted_cross_entropy(logits, target, weights, ignore_index)
+                ce = weighted_cross_entropy(logits, target, weights, ignore_index, group=group)
             else:
-                ce = cross_entropy_ignore(logits, target, ignore_index)
-            return ce + dice_weight * dice_loss(logits, target, ignore_index)
+                ce = cross_entropy_ignore(logits, target, ignore_index, group=group)
+            return ce + dice_weight * dice_loss(logits, target, ignore_index, group=group)
 
         return ce_dice
     raise NotImplementedError(f'No implementation for loss "{name}"')
@@ -129,17 +157,34 @@ def _model_batch(batch: dict, image: torch.Tensor) -> dict:
     return out
 
 
-def make_augment_step(transform_params: TransformParams, ignore_index: int):
+def make_augment_step(transform_params: TransformParams, ignore_index: int, mesh=None):
     """``augment_step(generator, batch) -> batch`` with ``image`` and
     ``target`` augmented (a new dict; the input batch is left as it is), or
-    None when no transform is active."""
+    None when no transform is active.
+
+    ``mesh`` (more than one rank): ``batch`` is this rank's rows of the
+    global batch. Every rank draws for the whole global batch from the same
+    generator and applies its rows' draws, so the result is the one-rank
+    step's on the global batch, row for row (the JAX fit augments the
+    global batch as one program: its draws do not depend on the device
+    count)."""
     if not transform_params.any_active:
         return None
 
     def augment_step(generator: torch.Generator, batch: dict) -> dict:
-        image, target = augment_batch(
-            generator, batch["image"], batch["target"], transform_params, ignore_index
-        )
+        if mesh is None:
+            image, target = augment_batch(
+                generator, batch["image"], batch["target"], transform_params, ignore_index
+            )
+        else:
+            local = batch["image"].shape[0]
+            n = local * n_batch_shards(mesh)
+            rows = local_rows(mesh, n)
+            draws = draw_augmentation(generator, n, transform_params, batch["image"].device)
+            draws = type(draws)(*(getattr(draws, f.name)[rows]
+                                  for f in dataclasses.fields(draws)))
+            image, target = apply_augmentation(batch["image"], batch["target"], draws,
+                                               transform_params, ignore_index)
         out = dict(batch)
         out["image"] = image
         out["target"] = target
@@ -156,6 +201,7 @@ def make_train_step(
     fuse_augmentation: bool = True,
     ema_decay: float = 0.0,
     ema_warmup: bool = True,
+    group=None,
 ):
     """Build ``train_step(state, batch, generator) -> (state, logs)`` for
     a ``state`` made by ``create_train_state(model, ...)``.
@@ -169,8 +215,16 @@ def make_train_step(
     With ``state.ema_params``, they move as ``d*ema + (1-d)*params`` after
     the update, ``d`` warmed up by ``ema_decay_at`` unless ``ema_warmup``
     is off.
+
+    ``group`` (the data-parallel step, ``parallel/shard_step.py``):
+    ``batch`` is this rank's rows and ``model`` was built with the same
+    ``bn_group``. The loss is the group's whole batch's (ops/losses.py),
+    the gradients are summed over the group in one all-reduce of one flat
+    buffer before the update, so every rank takes the same update, and the
+    confusion is the group's. The loss's and BatchNorm's backwards add no
+    second sum (parallel/collectives.py).
     """
-    loss_of = make_loss_fn(loss_cfg, ignore_index)
+    loss_of = make_loss_fn(loss_cfg, ignore_index, group)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         image, target = batch["image"], batch["target"]
@@ -183,9 +237,11 @@ def make_train_step(
         loss = loss_of(logits, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _all_reduce_grads(model, group)
         lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
         state.optimizer.step()
         state.step += 1
         if state.ema_params is not None:
@@ -200,18 +256,35 @@ def make_train_step(
                     e = state.ema_params[name]
                     e.copy_(d * e + (1.0 - d) * p)
         with torch.no_grad():
-            confusion = confusion_from_logits(logits, target, ignore_index)
+            confusion = confusion_from_logits(logits, target, ignore_index, group=group)
         return state, {"loss": loss.detach(), "confusion": confusion}
 
     return train_step
 
 
-def make_eval_step(model, ignore_index: int):
+def _all_reduce_grads(model, group) -> None:
+    """Sum every parameter's gradient over ``group`` in one all-reduce of
+    one flat f32 buffer (the parameters are f32)."""
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    collectives.all_reduce(flat, group)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+
+
+def make_eval_step(model, ignore_index: int, group=None):
     """``eval_step(state, batch) -> {"loss", "confusion", "logits"}``: the
     eval-mode forward under inference mode (on the EMA parameters when
     present), loss and confusion with the rows whose ``valid`` is False
     dropped, and the batch's f32 logits [B, n_classes, H, W]. The model's
-    train/eval mode is restored afterwards."""
+    train/eval mode is restored afterwards. ``group``: ``batch`` is this
+    rank's rows, the loss and confusion are the group's whole batch's, the
+    logits this rank's."""
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         was_training = model.training
@@ -227,9 +300,9 @@ def make_eval_step(model, ignore_index: int):
                 target = batch["target"]
                 return {
                     "loss": cross_entropy_ignore(logits, target, ignore_index,
-                                                 sample_weight=valid),
+                                                 sample_weight=valid, group=group),
                     "confusion": confusion_from_logits(logits, target, ignore_index,
-                                                       sample_weight=valid),
+                                                       sample_weight=valid, group=group),
                     "logits": logits,
                 }
         finally:
@@ -238,16 +311,24 @@ def make_eval_step(model, ignore_index: int):
     return eval_step
 
 
-def raise_on_nan(where: str, named) -> None:
+def raise_on_nan(where: str, named, group=None) -> None:
     """Raise ``FloatingPointError`` naming the first of ``named`` ((name,
     tensor) pairs, in order) that holds a NaN: ``tpu.debug_nans``, the
     counterpart of ``jax_debug_nans``, which checks NaN and not inf. One
     fused reduction and one host sync: a tensor's 2-norm is NaN exactly
     when one of its elements is (an inf gives inf), and ``_foreach_norm``
-    takes all the tensors in one multi-tensor launch per dtype."""
+    takes all the tensors in one multi-tensor launch per dtype.
+
+    ``group``: the flags are summed over the group first, so every rank
+    raises at the same step, naming the first tensor that holds a NaN on
+    any rank: one rank raising alone would leave the others waiting in
+    their next collective."""
     names = [name for name, _ in named]
     norms = torch._foreach_norm([t.detach().float() for _, t in named])
-    bad = torch.stack(norms).isnan().nonzero()  # the host sync
+    flags = torch.stack(norms).isnan().float()
+    if group is not None:
+        collectives.all_reduce(flags, group)
+    bad = flags.nonzero()  # the host sync
     if bad.numel():
         raise FloatingPointError(f"NaN in {names[int(bad[0, 0])]} {where} (tpu.debug_nans)")
 
@@ -275,24 +356,43 @@ def default_experiment_dir(cfg: Config) -> str:
     return pattern.format(date=datetime.date.today().isoformat(), name=name)
 
 
-def _check_single_device(cfg) -> None:
-    """Raise NotImplementedError for the settings that need more than one
-    device or process, which the port has not reached yet."""
-    later = "needs more than one device, not ported yet (ROADMAP.md Queue 1 item 4)"
-    n_devices = cfg.select("tpu.n_devices")
-    if n_devices is not None and int(n_devices) > 1:
-        raise NotImplementedError(f"tpu.n_devices={n_devices} {later}")
+def _check_supported(cfg) -> None:
+    """Raise for the settings the port does not run (before anything is
+    written): spatial partitioning, and the JAX package's own refusals of
+    ``tpu.spmd_impl`` (``train/fit.py:377-386`` there)."""
     spatial = int(cfg.select("tpu.spatial_shards", 1) or 1)
     if spatial > 1:
-        raise NotImplementedError(f"tpu.spatial_shards={spatial} {later}")
+        raise NotImplementedError(
+            f"tpu.spatial_shards={spatial}: spatial partitioning is not ported yet "
+            "(ROADMAP.md Queue 1, PR 9: halo exchanges for the 3x3 convs and the 2x "
+            "upsample)"
+        )
     spmd_impl = cfg.select("tpu.spmd_impl", "gspmd") or "gspmd"
-    if spmd_impl != "gspmd":
-        raise NotImplementedError(f"tpu.spmd_impl={spmd_impl} {later}")
-    multihost = cfg.select("tpu.multihost") or {}
-    if multihost.get("coordinator_address") or int(multihost.get("num_processes") or 1) > 1:
-        raise NotImplementedError(f"a tpu.multihost cluster {later}")
-    if cfg.select("tpu.device_cache_shard", "auto") == "pod":
-        raise NotImplementedError(f"tpu.device_cache_shard=pod {later}")
+    if spmd_impl not in ("gspmd", "shard_map"):
+        raise NotImplementedError(f'No implementation for tpu.spmd_impl "{spmd_impl}"')
+    if spmd_impl == "shard_map" and (cfg.select("loss.name", "ce") or "ce") != "ce":
+        raise NotImplementedError("tpu.spmd_impl=shard_map supports the default CE loss only")
+    block = cfg.select("tpu.multihost") or {}
+    keys = ("coordinator_address", "num_processes", "process_id")
+    given = [k for k in keys if block.get(k) is not None]
+    if given and len(given) < len(keys):
+        raise ValueError(
+            f"tpu.multihost sets {given} but not {[k for k in keys if k not in given]}: a "
+            "cluster needs all three (or none, and a launcher's environment)"
+        )
+
+
+def _fit_mesh():
+    """The data mesh of this fit's ranks (JAX ``train/fit.py:308-331``):
+    pod x data when the ranks span more than one node (``detect_n_pods``),
+    else one data axis. Unlike the JAX package, a pod axis is made also
+    with one rank per node: the mesh places no collective here, and the
+    pod-sharded scene cache needs the axis."""
+    world = multihost.process_count()
+    n_pods = detect_n_pods()
+    if n_pods > 1 and world % n_pods == 0:
+        return make_hybrid_mesh(n_pods, world // n_pods)
+    return make_mesh(world)
 
 
 def _epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -313,34 +413,73 @@ def fit_model(
     overwrite_exp_dir: str | None = None,
     device="cuda",
     init_state_dict: dict | None = None,
+    devices=None,
 ) -> str:
-    """Train on one device; returns the best checkpoint path (reference
-    fit.py:16-103, JAX ``train/fit.py:263-938``).
+    """Train; returns the best checkpoint path (reference fit.py:16-103,
+    JAX ``train/fit.py:263-938``), on every rank.
 
     ``init_state_dict``: start from these weights (a state dict, e.g. the
     JAX package's initial parameters through ``state_dict_from_flax``)
     instead of ``init_weights(model, seed_num)``. Raises without a card
-    unless ``device="cpu"``, and for settings that need more than one
-    device (``_check_single_device``).
+    unless ``device="cpu"``, and for spatial partitioning
+    (``_check_supported``).
+
+    More than one device: ``devices`` (a list, e.g. ``["cuda:0",
+    "cuda:1"]``, or twice ``"cpu"``) or ``tpu.n_devices`` > 1 (``cuda:0``
+    .. ``cuda:n-1``; raises when fewer cards are present, or ``n`` times
+    the CPU) spawns one rank per device (``parallel/launch.py``), each
+    running this function, and returns rank 0's result. A process already
+    in a group (``torchrun``, a ``tpu.multihost`` block) is one rank.
 
     ``tpu.debug_nans``: after every train step the loss, gradients,
     parameters and running statistics, after every validation step the loss
     and logits, are checked for NaN (``raise_on_nan``), and the first NaN
     raises ``FloatingPointError`` naming the epoch, the step and the
-    tensor. Off, the steps carry no check and no sync. Unlike
-    ``jax_debug_nans``, which the JAX fit turns on for the rest of the
-    process, the setting ends with the fit.
+    tensor (on every rank at once). Off, the steps carry no check and no
+    sync. Unlike ``jax_debug_nans``, which the JAX fit turns on for the rest
+    of the process, the setting ends with the fit.
     """
-    device = resolve_device(device)
-    _check_single_device(cfg)
+    _check_supported(cfg)
+    multihost.initialize_from_env_or_config(cfg, device)
+    n_cfg = cfg.select("tpu.n_devices")
+    if not collectives.active():
+        if devices is None and int(n_cfg or 1) > 1:
+            devices = device_list(int(n_cfg), device)
+        if devices is not None and n_cfg is not None and int(n_cfg) != len(devices):
+            raise ValueError(f"tpu.n_devices={n_cfg} but {len(devices)} devices given")
+        if devices is not None and len(devices) > 1:
+            exp_dir = overwrite_exp_dir or default_experiment_dir(cfg)
+            return launch.spawn(fit_model, (cfg, exp_dir), {"init_state_dict": init_state_dict},
+                                devices=devices)[0]
+        if devices:
+            device = devices[0]
+    device = resolve_device(multihost.rank_device(device))
+    world = multihost.process_count()
+    if n_cfg is not None and int(n_cfg) != world:
+        raise ValueError(f"tpu.n_devices={n_cfg} but {world} ranks are in this process group")
+    coordinator = multihost.is_coordinator()
+    mesh = _fit_mesh()
+    group = batch_group(mesh)
+    shard_mode = str(cfg.select("tpu.device_cache_shard", "auto") or "auto")
+    if shard_mode == "pod" and "pod" not in mesh.axis_names:
+        raise ValueError(
+            "tpu.device_cache_shard=pod needs a pod axis: ranks on more than one node "
+            f"(LOCAL_WORLD_SIZE below the world size); this fit's mesh is {mesh.shape}"
+        )
+    if device.type == "cuda" and collectives.active():
+        torch.cuda.set_device(device)  # the rank's card (rank_device gives it an index)
     # Wall-clock decomposition of the whole fit, written to
     # <exp_dir>/timing.json with the JAX package's keys.
     fit_start = time.time()
     timing_epochs: list[dict] = []
 
     exp_dir = overwrite_exp_dir or default_experiment_dir(cfg)
-    os.makedirs(exp_dir, exist_ok=True)
-    save_config(cfg, exp_dir)
+    if coordinator:
+        os.makedirs(exp_dir, exist_ok=True)
+        save_config(cfg, exp_dir)
+    if world > 1:
+        print(f"[fit] rank {multihost.process_index()} of {world} on {device}, mesh axes "
+              f"{mesh.shape}", flush=True)
 
     slice_params = generate_image_slice_object(
         cfg.crop_height, cfg.crop_width, cfg.crop_stride
@@ -359,13 +498,23 @@ def fit_model(
     valid_dataset = build_dataset(cfg.dataset.name, "valid", slice_params, **common)
     n_classes = train_dataset.n_classes
     ignore_index = resolve_ignore_index(cfg.ignore_index, n_classes)
+    # The global batch splits evenly over the ranks (JAX train/fit.py:336-346).
+    n_shards = n_batch_shards(mesh)
     batch_size = int(cfg.batch_size)
+    if batch_size % n_shards != 0:
+        batch_size = max(n_shards, (batch_size // n_shards) * n_shards)
+        print(f"[fit] batch_size {cfg.batch_size} not divisible by {n_shards} data shards; "
+              f"using {batch_size}")
+    rows = local_rows(mesh, batch_size)
     seed = cfg.seed_num or 0
 
+    shard = multihost.process_shard()
     train_loader = BatchLoader(train_dataset, batch_size=batch_size, shuffle=True,
-                               n_workers=cfg.n_workers, drop_last=True, seed=cfg.seed_num)
+                               n_workers=cfg.n_workers, drop_last=True, seed=cfg.seed_num,
+                               process_shard=shard)
     valid_loader = BatchLoader(valid_dataset, batch_size=batch_size, shuffle=False,
-                               n_workers=cfg.n_workers, drop_last=False, pad_final=True)
+                               n_workers=cfg.n_workers, drop_last=False, pad_final=True,
+                               process_shard=shard)
 
     compute_dtype = cfg.select("tpu.compute_dtype", "bfloat16")
     model = build_model(
@@ -375,6 +524,7 @@ def fit_model(
         dtype=resolve_compute_dtype(cfg),
         device=device,
         conv_impl=resolve_conv_impl(cfg),
+        bn_group=group,
         **(cfg.model.get("model_kwargs") or {}),
     )
     if init_state_dict is None:
@@ -392,7 +542,11 @@ def fit_model(
         warmup_steps=int(cfg.select("lr_warmup_steps", 0) or 0),
         ema=ema_decay > 0,
     )
+    replicate_state(state, mesh)
 
+    # Every rank reads the index rank 0 wrote; the barrier orders the
+    # reads after rank 0 made the directory.
+    multihost.sync("setup")
     manager = CheckpointManager(
         exp_dir,
         save_top_k=cfg.save_topk_models,
@@ -401,12 +555,15 @@ def fit_model(
     )
     start_epoch = 0
     if cfg.select("tpu.resume", True) and manager.latest_model_path:
+        # Every rank restores from the shared directory.
         manager.restore(manager.latest_model_path, state)
+        replicate_state(state, mesh)
         latest = manager.latest_epoch
         start_epoch = 0 if latest is None else latest + 1
         print(f"[fit] resumed from {manager.latest_model_path} (epoch {start_epoch})")
         if start_epoch >= cfg.n_epochs:
-            # A fully trained experiment: no cache, no writer, no step.
+            # A fully trained experiment: no cache, no writer, no step. The
+            # same index on every rank: every rank returns here.
             print(f"[fit] nothing to do: epoch {start_epoch} >= n_epochs {cfg.n_epochs}")
             return manager.best_model_path or ""
 
@@ -415,50 +572,74 @@ def fit_model(
     )
     if not cfg.select("tpu.use_pallas", True):
         transform_params = dataclasses.replace(transform_params, rotate_impl="shear")
-    train_step = make_train_step(
+    # The steps over this fit's mesh (on one rank they sum nothing). The
+    # module builds them from this one's, so it is imported here.
+    from floodplanet_code_tpu_torch.parallel import shard_step
+
+    train_step = shard_step.make_shard_train_step(
         model,
+        mesh,
         ignore_index,
-        transform_params,
         loss_cfg=cfg.select("loss"),
-        fuse_augmentation=False,
         ema_decay=ema_decay,
         ema_warmup=bool(cfg.select("ema_warmup", True)),
     )
-    augment_step = make_augment_step(transform_params, ignore_index)
-    eval_step = make_eval_step(model, ignore_index)
+    augment_step = make_augment_step(transform_params, ignore_index,
+                                     mesh if world > 1 else None)
+    eval_step = shard_step.make_shard_eval_step(model, mesh, ignore_index)
 
     # The HBM scene cache (data/device_cache.py): batches are gathered on
-    # the card from index rows. The budget covers train + valid together;
-    # the valid stacks get what the train stacks left.
-    train_cache = valid_cache = None
+    # the card from index rows. The budget (per device) covers train +
+    # valid together; the valid stacks get what the train stacks left.
+    # tpu.device_cache_shard (JAX train/fit.py:543-566): 'replicate' keeps
+    # every scene on every rank, 'pod' 1/n_pods of them per pod, 'auto'
+    # replicates when the budget allows and else shards over the pods.
+    def build_cache(dataset, budget):
+        """(cache, builder of this rank's rows, bytes on this device)."""
+        if shard_mode in ("auto", "replicate"):
+            cache = build_device_cache(dataset, budget, device, cfg.n_workers)
+            if cache is not None:
+                return cache, make_batch_builder(cache, rows), cache.nbytes
+        if shard_mode in ("auto", "pod") and "pod" in mesh.axis_names:
+            cache = build_device_cache_sharded(dataset, mesh, budget, device, cfg.n_workers)
+            if cache is not None:
+                return (cache, make_batch_builder_podsharded(cache, mesh, batch_size),
+                        cache.device_nbytes)
+        return None, None, 0
+
+    train_cache = valid_cache = train_build = valid_build = None
     cache_bytes = int(cfg.select("tpu.device_data_bytes", 6 << 30) or 0)
     if cache_bytes > 0:
-        train_cache = build_device_cache(train_dataset, cache_bytes, device, cfg.n_workers)
+        train_cache, train_build, train_held = build_cache(train_dataset, cache_bytes)
         if train_cache is not None:
-            valid_cache = build_device_cache(
-                valid_dataset, cache_bytes - train_cache.nbytes, device, cfg.n_workers
-            )
-            cached = train_cache.nbytes + (valid_cache.nbytes if valid_cache else 0)
-            print(f"[fit] device data cache: {cached / 1e9:.2f} GB on {device}")
+            valid_cache, valid_build, valid_held = build_cache(
+                valid_dataset, cache_bytes - train_held)
+            cached = train_held + (valid_held if valid_cache else 0)
+            pod = " (pod-sharded)" if train_cache.device_nbytes < train_cache.nbytes else ""
+            print(f"[fit] device data cache: {cached / 1e9:.2f} GB on {device}{pod}")
 
-    def from_cache(cache, dataset, order, drop_last):
-        for batch, _, n_real in cache_batches(cache, dataset, batch_size, order, drop_last):
+    positions = torch.arange(batch_size, device=device)[rows]
+
+    def from_cache(cache, build, dataset, order, drop_last):
+        for batch, _, n_real in cache_batches(cache, dataset, batch_size, order, drop_last,
+                                              build=build):
             # Made on the card: a blocking host copy would wait for the
             # stream, and the host could no longer run ahead of the steps.
-            batch["valid"] = torch.arange(batch_size, device=device) < n_real
+            batch["valid"] = positions < n_real
             yield batch
 
     def train_batches(epoch):
         if train_cache is not None:
             # The order is a pure function of (seed, epoch), as the loader's.
             order = np.random.default_rng((seed, epoch)).permutation(len(train_dataset))
-            return from_cache(train_cache, train_dataset, order, True)
+            return from_cache(train_cache, train_build, train_dataset, order, True)
         train_loader.set_epoch(epoch)
         return device_prefetch(iter(train_loader), device, size=cfg.select("tpu.prefetch", 2))
 
     def valid_batches():
         if valid_cache is not None:
-            return from_cache(valid_cache, valid_dataset, np.arange(len(valid_dataset)), False)
+            return from_cache(valid_cache, valid_build, valid_dataset,
+                              np.arange(len(valid_dataset)), False)
         return device_prefetch(iter(valid_loader), device, size=2)
 
     def logits_of(image):
@@ -470,8 +651,11 @@ def fit_model(
         finally:
             model.train()
 
-    writer, writer_name = open_writer(os.path.join(exp_dir, "tensorboard_logs"))
-    print(f"[fit] logging with {writer_name} under {exp_dir}/tensorboard_logs")
+    # The coordinator writes TensorBoard; the other ranks' writer drops all.
+    writer, writer_name = NullWriter(), "nothing (not the coordinator)"
+    if coordinator:
+        writer, writer_name = open_writer(os.path.join(exp_dir, "tensorboard_logs"))
+        print(f"[fit] logging with {writer_name} under {exp_dir}/tensorboard_logs")
     log_image_iter = cfg.select("log_image_iter") or 0
     debug_nans = bool(cfg.select("tpu.debug_nans", False))
     profiler_mode = cfg.select("profiler")
@@ -486,7 +670,7 @@ def fit_model(
         generator = _epoch_generator(seed, epoch, device)
         epoch_start = time.time()
         profiler = None
-        if profiler_mode == "advanced" and epoch == start_epoch:
+        if profiler_mode == "advanced" and epoch == start_epoch and coordinator:
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]
@@ -504,7 +688,7 @@ def fit_model(
             state, logs = train_step(state, batch)
             if debug_nans:
                 raise_on_nan(f"after train step {n_train_batches} of epoch {epoch}",
-                             _train_step_tensors(model, logs["loss"]))
+                             _train_step_tensors(model, logs["loss"]), group)
             train_confusion += logs["confusion"]
             losses.append(logs["loss"])
             if first_step_wall is None:
@@ -514,12 +698,14 @@ def fit_model(
                 first_step_wall = time.time() - epoch_start
             n_train_batches += 1
             global_step += 1
-            if global_step % 10 == 0:
+            if global_step % 10 == 0 and coordinator:
                 writer.add_scalar("train_loss", logs["loss"].item(), global_step)
                 step_metrics = compute_metrics(logs["confusion"], "train_", ignore_index)
                 for key, value in step_metrics.items():
                     writer.add_scalar(key, value.item(), global_step)
-            if log_image_iter and global_step % log_image_iter == 0:
+            if log_image_iter and global_step % log_image_iter == 0 and coordinator:
+                # The coordinator's rows; the panel's forward has no
+                # collective, so the other ranks skip it.
                 logits = logits_of(batch["image"])
                 log_image_panel(
                     writer,
@@ -554,7 +740,8 @@ def fit_model(
             logs = eval_step(state, batch)
             if debug_nans:
                 raise_on_nan(f"after validation step {k} of epoch {epoch}",
-                             [("the loss", logs["loss"]), ("the logits", logs["logits"])])
+                             [("the loss", logs["loss"]), ("the logits", logs["logits"])],
+                             group)
             val_confusion += logs["confusion"]
             val_losses.append(logs["loss"])
         _sync(device)
@@ -577,16 +764,20 @@ def fit_model(
         if profiler_mode == "simple":
             print(f"[profiler] epoch {epoch}: {train_time:.1f}s train, "
                   f"{tiles_per_sec:.1f} tiles/s")
-        print(
-            f"epoch {epoch}: loss {monitored['train_loss']:.4f} "
-            f"val_IoU {monitored.get(MONITOR_KEY, 0.0):.4f} "
-            f"water_IoU {monitored.get('val_water_IoU', 0.0):.4f} "
-            f"({tiles_per_sec:.1f} tiles/s)"
-        )
+        if coordinator:
+            print(
+                f"epoch {epoch}: loss {monitored['train_loss']:.4f} "
+                f"val_IoU {monitored.get(MONITOR_KEY, 0.0):.4f} "
+                f"water_IoU {monitored.get('val_water_IoU', 0.0):.4f} "
+                f"({tiles_per_sec:.1f} tiles/s)"
+            )
         ckpt_start = time.time()
         # force on the final epoch: a completed run leaves a latest
         # checkpoint, so a re-invoked fit is a no-op.
         manager.save(state, epoch, monitored, force=(epoch == cfg.n_epochs - 1))
+        # Epoch-end barrier: no rank decides the next save, or exits,
+        # before rank 0's write.
+        multihost.sync(f"epoch_{epoch}")
         ckpt_wall = time.time() - ckpt_start
         timing_epochs.append({
             "epoch": epoch,
@@ -604,7 +795,7 @@ def fit_model(
     ckpt_drain_start = time.time()
     manager.wait_until_finished()
     ckpt_drain_wall = time.time() - ckpt_drain_start
-    if timing_epochs:
+    if timing_epochs and coordinator:
         _write_timing(exp_dir, fit_start, setup_wall, first_step_wall, timing_epochs,
                       batch_size, manager.background_write_seconds, ckpt_drain_wall)
     return manager.best_model_path or ""

@@ -6,7 +6,9 @@ imports (the JAX package's writer), else ``torch.utils.tensorboard``'s,
 else a ``JsonlWriter`` with the same ``add_scalar``/``add_image``/``close``
 interface. ``log_image_panel`` renders the first batch element as a
 stacked RGB / prediction-confusion panel (the reference's disabled image
-logging, water_seg_model.py:115-134, made functional).
+logging, water_seg_model.py:115-134, made functional). Under more than one
+rank only the coordinator opens a writer; the others hold a ``NullWriter``
+(JAX ``train/fit.py:639-652``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,19 @@ class JsonlWriter:
 
     def close(self) -> None:
         self._file.close()
+
+
+class NullWriter:
+    """The writer of a rank that is not the coordinator: drops everything."""
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def add_image(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def open_writer(logdir: str):

@@ -242,3 +242,26 @@ def test_restore_repacks_the_eval_cache(tmp_path):
     fresh = _port_state(conv_impl="pallas_fused")
     manager.restore(path, fresh)
     assert torch.equal(got, make_eval_step(fresh.model, 0)(fresh, _batch(4))["loss"])
+
+
+def test_other_ranks_leave_the_index_to_the_coordinator(tmp_path, monkeypatch):
+    """Under more than one process, a rank other than rank 0 returns from
+    ``save`` without reading index.json, which rank 0 may be rewriting at
+    that moment (here: a torn file that a read would fail on); rank 0
+    replaces the index whole, leaving no temporary file behind."""
+    from floodplanet_code_tpu_torch.parallel import multihost
+
+    state = _port_state()
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(multihost, "is_coordinator", lambda: True)
+    writer = ckpt.CheckpointManager(str(tmp_path), save_top_k=1, async_save=True)
+    assert writer._executor is None  # synchronous under several processes
+    path = writer.save(state, 0, {KEY: 0.5})
+    assert sorted(os.listdir(writer.ckpt_dir)) == ["index.json", os.path.basename(path)]
+    monkeypatch.setattr(multihost, "is_coordinator", lambda: False)
+    other = ckpt.CheckpointManager(str(tmp_path), save_top_k=1)
+    index = os.path.join(other.ckpt_dir, "index.json")
+    with open(index, "w") as handle:
+        handle.write('{"entries": [{"na')
+    assert other.save(state, 1, {KEY: 0.9}) is None
+    assert open(index).read() == '{"entries": [{"na'

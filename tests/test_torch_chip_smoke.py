@@ -24,7 +24,10 @@ count no kernel launch:
 - data tools and options: global normalization (the parameters, cache
   parity, fits through both input paths), the non-square fit and augment
   check, fused_bn=false against fused_bn=true, debug_nans fits clean and
-  poisoned, the data tools and the example transformer.
+  poisoned, the data tools and the example transformer;
+- more than one device: two CPU ranks (gloo) against one rank, one rank
+  through the launcher, the 2-rank fits with the replicated and the
+  pod-sharded cache and the resume, infer over two replicas.
 """
 
 import torch
@@ -144,4 +147,27 @@ def test_data_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result["non_square"]["augment_max_abs_err"] == 0.0
     assert result["fused_bn_false"]["loss_rel"] <= 1e-4
     assert "phase12/nans_poisoned" in result["tools"]["gc_listed"]
+    assert not (tmp_path / "work").exists()
+
+
+def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 13 with two CPU ranks (gloo): the data-parallel steps against
+    one rank, one rank through the launcher, the 2-rank fits with both
+    caches and the resume, the one-rank fit, infer over two replicas."""
+    monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "TRAIN_SCENES", [(150, 200)] * 5)
+    monkeypatch.setattr(chip_smoke, "MD_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "MD_PAD", 1)
+    monkeypatch.setattr(chip_smoke, "MD_LIMIT_TRAIN", 2)
+    monkeypatch.setattr(chip_smoke, "MD_LIMIT_VAL", 1)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    result = chip_smoke.run_multi_device("cpu", device="cpu")
+    assert result["launches"] == {"conv": 0, "shear": 0}
+    assert result["nccl_one_rank"]["backend"] == "gloo"  # one CPU rank
+    assert result["fit"]["pod_batches_equal"][0] > 0
+    assert len(result["fit"]["losses"]) == 4
+    assert result["infer"]["argmax_agree"] >= 0.999
+    assert result["two_cards"] is None
     assert not (tmp_path / "work").exists()

@@ -162,13 +162,21 @@ def test_soup_reloads_to_its_metrics(exps):
         assert shared(sd) == evaluator(path)[1](sd)
 
 
-def test_ensemble_matches_jax(exps):
+def _port_members(exps) -> list:
+    return [os.path.join(exps["port"], "checkpoints", e["name"]) for e in exps["entries"][:2]]
+
+
+@pytest.fixture(scope="module")
+def port_ensemble(exps):
+    """The port's ensemble of the two best entries on one CPU device."""
+    return eval_ensemble.evaluate_ensemble(_port_members(exps), split="valid", device="cpu")
+
+
+def test_ensemble_matches_jax(exps, port_ensemble):
     names = [e["name"] for e in exps["entries"][:2]]
     want = jax_ensemble.evaluate_ensemble(
         [os.path.join(exps["jax"], "checkpoints", n) for n in names], split="valid")
-    got = eval_ensemble.evaluate_ensemble(
-        [os.path.join(exps["port"], "checkpoints", n) for n in names], split="valid",
-        device="cpu")
+    got = port_ensemble
     assert got["fold"] == want["fold"] and got["split"] == "valid"
     for g, w in zip(got["members"], want["members"]):
         assert os.path.basename(g["checkpoint"]) == os.path.basename(w["checkpoint"])
@@ -176,6 +184,19 @@ def test_ensemble_matches_jax(exps):
     _close(got["ensemble_metrics"], want["ensemble_metrics"], METRIC_KEYS[:3])
     assert got["ensemble_iou"] == got["ensemble_metrics"]["val_MulticlassJaccardIndex"]
     assert got["best_member_iou"] == max(m["iou"] for m in got["members"])
+
+
+def test_ensemble_over_two_replicas_equals_one_device(exps, port_ensemble):
+    """evaluate_ensemble(devices=[cpu, cpu]): every member replicated, each
+    batch split over the replicas and gathered (inference/sliding.py's
+    ``replicate`` and ``split_apply``). The same pixels are counted, each
+    logit computed at another batch size: the metrics within TOL."""
+    one = port_ensemble
+    two = eval_ensemble.evaluate_ensemble(_port_members(exps), split="valid", device="cpu",
+                                          devices=["cpu", "cpu"])
+    _close(two["ensemble_metrics"], one["ensemble_metrics"], METRIC_KEYS[:3])
+    for a, b in zip(two["members"], one["members"]):
+        assert abs(a["iou"] - b["iou"]) <= TOL
 
 
 @pytest.mark.parametrize("package", ["jax", "port"])

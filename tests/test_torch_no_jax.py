@@ -20,7 +20,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
                         shear_timing, run_training, cache_parity, run_fit, run_evaluation,
-                        run_tools, run_data_tools, main)
+                        run_tools, run_data_tools, run_multi_device, main)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -75,6 +75,11 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.tools.test_image_transforms",
         "floodplanet_code_tpu_torch.tools.delete_failed_experiments",
         "floodplanet_code_tpu_torch.models.example_transformer",
+        "floodplanet_code_tpu_torch.parallel.mesh",
+        "floodplanet_code_tpu_torch.parallel.multihost",
+        "floodplanet_code_tpu_torch.parallel.collectives",
+        "floodplanet_code_tpu_torch.parallel.launch",
+        "floodplanet_code_tpu_torch.parallel.shard_step",
     ):
         assert expected in names
 
