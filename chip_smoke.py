@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, fit, evaluation,
-model-tool, data-tool and multi-device paths on one NVIDIA card (two
-ranks share it) and check them.
+model-tool, data-tool, multi-device and spatially partitioned paths on one
+NVIDIA card (two ranks share it) and check them.
 
 Run from the repository root, with no arguments:
 
@@ -121,7 +121,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    per-epoch losses within 3% of the one-rank fit; ``infer`` over two
    replicas against one device (>= 99.9% of pixels, |dp| <= DPROB_TOL). On
    a machine with two cards or more, the 2-rank fit over NCCL and ``infer``
-   over two cards too; else one line says they were not run.
+   over two cards too; else one line says they were not run;
+14. spatial partitioning (``tpu.spatial_shards=2``), in phase 13's two
+   ranks: a 1 x 2 data x space mesh, each rank the whole global batch's
+   MD_BATCH rows and half of the TILE image rows; the same step checks
+   against the one-rank steps (f32 gradients within SP_GRAD_TOL of their
+   norm), the augment step on the full-height rows bit for bit, the fused
+   conv on halo-extended rows (the neighbour's edge row joined) against its
+   plain version at the inc and bottleneck levels, exact launches per
+   rank, the bf16 step's time and peak memory per rank against one rank's
+   and every collective of one step timed alone (the halo exchanges, the
+   BatchNorm sums, the rest); a 2-rank spatial ``fit_model`` of MD_EPOCHS
+   epochs through the replicated cache with a full-height image panel
+   every SP_LOG_IMAGE_ITER steps, rank 0 alone writing, finite per-epoch
+   losses, reported beside the one-rank and the 2-rank data-parallel fits'
+   (not held to them: the card's bf16 fits differ between runs by as much;
+   the f32 step checks carry its correctness on the card, and
+   tests/test_torch_fit_ranks.py holds the spatial fit to the JAX fit on
+   the CPU). Its numbers are the ``spatial`` entry of the multi-device
+   JSON.
 
 The last ten lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
@@ -333,6 +351,13 @@ MD_PAD = 3
 MD_EPOCHS = 2
 MD_LIMIT_TRAIN = 4
 MD_LIMIT_VAL = 2
+# Spatial partitioning (phase 14, in phase 13's ranks): the same global
+# batch on a 1 x 2 data x space mesh (each rank MD_BATCH rows of TILE / 2
+# image rows), the f32 gradients within SP_GRAD_TOL of their norm of the
+# one-rank step's; its fit as phase 13's with an image panel every
+# SP_LOG_IMAGE_ITER steps.
+SP_GRAD_TOL = 2e-3
+SP_LOG_IMAGE_ITER = 4
 AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0, 1]
 
 
@@ -2698,9 +2723,10 @@ def _md_tf32_off() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _md_model(spec: dict, dtype, device, group=None):
+def _md_model(spec: dict, dtype, device, group=None, space=None):
     model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=spec["base"],
-                        dtype=dtype, device=device, conv_impl="pallas_fused", bn_group=group)
+                        dtype=dtype, device=device, conv_impl="pallas_fused", bn_group=group,
+                        space_group=space)
     sd = state_dict_from_flax(seeded_flax_variables(4, 3, spec["base"], seed=1))
     return model, create_train_state(model, sd, 1e-4)
 
@@ -2710,20 +2736,37 @@ def _md_tensors(batch: dict, rows, device) -> dict:
 
 
 def md_steps(spec: dict, device, mesh=None) -> dict:
-    """Phase 13's step checks on this process's rows of ``spec``'s global
-    batch: with ``mesh`` (a rank) the data-parallel steps, without it the
-    one-rank steps on the whole batch. The f32 eval step with padded rows
-    and MD_STEPS f32 train steps from the seeded weights, MD_FIXED_STEPS
-    bf16 steps on the same batch, the augment step (shear kernel, bf16),
-    and each path's launches."""
-    from floodplanet_code_tpu_torch.parallel.mesh import batch_group, local_rows
+    """Phase 13's and 14's step checks on this process's share of
+    ``spec``'s global batch: with ``mesh`` (a rank) the steps over its
+    ranks, data parallel or data x space (the rank's rows, cut to its block
+    of image rows after the augment step), without it the one-rank steps on
+    the whole batch. The f32 eval step with padded rows and MD_STEPS f32
+    train steps from the seeded weights, MD_FIXED_STEPS bf16 steps on the
+    same batch, the augment step (shear kernel, bf16) on the full-height
+    rows, and each path's launches; on a card the bf16 step's time and peak
+    memory, and with a mesh every collective's host time in one bf16 step
+    (``timed_collectives``)."""
+    from floodplanet_code_tpu_torch.parallel.mesh import (
+        all_group,
+        local_height,
+        local_rows,
+        space_group,
+    )
 
     _md_tf32_off()
-    group = None if mesh is None else batch_group(mesh)
-    rows = slice(None) if mesh is None else local_rows(mesh, spec["batch"]["image"].shape[0])
+    group = space = None
+    rows = slice(None)
+    if mesh is not None:
+        group, space = all_group(mesh), space_group(mesh)
+        rows = local_rows(mesh, spec["batch"]["image"].shape[0])
     batch = _md_tensors(spec["batch"], rows, device)
+    block = batch
+    if space is not None:
+        hs = local_height(mesh, batch["image"].shape[1])
+        block = {k: v[:, hs] for k, v in batch.items()}
     n = spec["batch"]["image"].shape[0]
     valid = torch.arange(n, device=device)[rows] < spec["n_valid"]
+    on_card = torch.device(device).type == "cuda"
     out, launches = {}, {}
 
     def counted(name, fn, kernel=conv_fused.KERNEL):
@@ -2734,9 +2777,9 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
         launches[name] = LAUNCHES[kernel]  # and ends here
         return value
 
-    model, state = _md_model(spec, torch.float32, device, group)
+    model, state = _md_model(spec, torch.float32, device, group, space)
     eval_step = make_eval_step(model, 0, group)
-    logs = counted("eval", lambda: eval_step(state, dict(batch, valid=valid)))
+    logs = counted("eval", lambda: eval_step(state, dict(block, valid=valid)))
     out["eval"] = {"loss": logs["loss"].item(), "confusion": logs["confusion"].cpu().numpy()}
     step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
                            fuse_augmentation=False, group=group)
@@ -2745,18 +2788,19 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     def f32_steps():
         nonlocal state
         for k in range(spec["steps"]):
-            state, logs = step(state, batch)
+            state, logs = step(state, block)
             losses.append(logs["loss"].item())
             if k == 0:
                 out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
                 out["stats1"] = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+                out["f32_confusion"] = logs["confusion"].cpu().numpy()
 
     counted("f32_steps", f32_steps)
     out["f32_losses"] = losses
     out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
     out["stats"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
     del model, state, step, eval_step
-    model, state = _md_model(spec, torch.bfloat16, device, group)
+    model, state = _md_model(spec, torch.bfloat16, device, group, space)
     step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
                            fuse_augmentation=False, group=group)
     bf16 = []
@@ -2764,29 +2808,45 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     def bf16_steps():
         nonlocal state
         for _ in range(spec["fixed_steps"]):
-            state, logs = step(state, batch)
+            state, logs = step(state, block)
             bf16.append(logs["loss"])
 
     counted("bf16_steps", bf16_steps)
     out["bf16_losses"] = [v.item() for v in bf16]
-    if torch.device(device).type == "cuda":
-        out["bf16_step_ms"] = cuda_ms(lambda: step(state, batch), 3, warmup=1)
-        if group is not None:
-            # The step's collectives alone (host clock, synchronized): the
-            # gradients' one all-reduce, and one of the size a BatchNorm
-            # sums (2 x 512 channels + 1).
-            from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
+    if on_card:
+        out["bf16_step_ms"] = cuda_ms(lambda: step(state, block), 3, warmup=1)
+        # The step's peak: the largest allocation the step reached, and
+        # what it added to what was allocated before it (model, Adam,
+        # batch).
+        sync(device)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        step(state, block)
+        sync(device)
+        peak = torch.cuda.max_memory_allocated(device)
+        out["bf16_step_memory_mib"] = {"peak": peak / 2**20, "added": (peak - before) / 2**20}
+    if group is not None:
+        with timed_collectives(device) as calls:
+            step(state, block)
+        out["collectives"] = {kind: {"count": sum(1 for k, _ in calls if k == kind),
+                                     "ms": sum(ms for k, ms in calls if k == kind)}
+                              for kind in sorted({k for k, _ in calls})}
+    if on_card and group is not None:
+        # The step's collectives alone (host clock, synchronized): the
+        # gradients' one all-reduce, and one of the size a BatchNorm
+        # sums (2 x 512 channels + 1).
+        from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
 
-            for name, n in (("grad_all_reduce_ms", sum(p.numel() for p in model.parameters())),
-                            ("bn_all_reduce_ms", 1025)):
-                flat = torch.zeros(n, device=device)
+        for name, n in (("grad_all_reduce_ms", sum(p.numel() for p in model.parameters())),
+                        ("bn_all_reduce_ms", 1025)):
+            flat = torch.zeros(n, device=device)
+            all_reduce(flat, group)
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(5):
                 all_reduce(flat, group)
-                sync(device)
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    all_reduce(flat, group)
-                sync(device)
-                out[name] = (time.perf_counter() - t0) / 5 * 1e3
+            sync(device)
+            out[name] = (time.perf_counter() - t0) / 5 * 1e3
     del model, state, step
     tp = TransformParams(rotate_impl="shear_pallas", dtype="bfloat16")
     augment = make_augment_step(tp, 0, mesh)
@@ -2797,14 +2857,92 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timed_collectives(device):
+    """Within the block, every all-reduce of the train step is timed alone
+    (host clock, the device synchronized before and after) and recorded as
+    (kind, ms): ``halo`` (a row exchange, parallel/halo.py: its [sp, 2, B,
+    k, W, C] buffer), ``batchnorm`` (ops/batchnorm.py), ``confusion``
+    (ops/metrics.py), ``loss_and_gradients`` (the global loss's sums and the
+    gradients' one all-reduce)."""
+    from floodplanet_code_tpu_torch.ops import batchnorm, metrics
+    from floodplanet_code_tpu_torch.parallel import collectives
+
+    calls = []
+    originals = {m: m.all_reduce for m in (collectives, batchnorm, metrics)}
+
+    def timed(module):
+        def all_reduce(t, group=None):
+            kind = {batchnorm: "batchnorm", metrics: "confusion"}.get(
+                module, "halo" if t.dim() == 6 else "loss_and_gradients")
+            sync(device)
+            t0 = time.perf_counter()
+            originals[collectives](t, group)
+            sync(device)
+            calls.append((kind, (time.perf_counter() - t0) * 1e3))
+            return t
+        return all_reduce
+
+    for module in originals:
+        module.all_reduce = timed(module)
+    try:
+        yield calls
+    finally:
+        for module, fn in originals.items():
+            module.all_reduce = fn
+
+
+def sp_halo_parity(spec: dict, mesh, device) -> dict:
+    """Phase 14's kernel check: the fused conv on a halo-extended y, as
+    ``DoubleConv`` runs it under spatial partitioning (this rank's block of
+    rows of a seeded y, the neighbour's edge row joined by the exchange),
+    against its plain version on the same y_ext, and the block's own output
+    rows against the plain version on the whole y; at the inc and the
+    bottleneck level, f32 and bf16. Returns the worst error of each over
+    max|ref| (phase 3's TOL)."""
+    from floodplanet_code_tpu_torch.parallel import halo
+    from floodplanet_code_tpu_torch.parallel.mesh import space_group
+
+    space = space_group(mesh)
+    tile, base = spec["tile"], spec["base"]
+    out = {}
+    for level, (hw, c1, c2) in (("inc", (tile, base, base)),
+                                ("bottleneck", (tile // 16, 8 * base, 8 * base))):
+        per = hw // mesh.shape["space"]
+        rows = slice(mesh.coords["space"] * per, (mesh.coords["space"] + 1) * per)
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(5)  # one y on every rank
+            y = torch.randn(2, c1, hw, hw, generator=gen, device=device).to(dtype)
+            y = y.contiguous(memory_format=torch.channels_last)
+            a = torch.rand(c1, generator=gen, device=device) + 0.5
+            b = torch.randn(c1, generator=gen, device=device) * 0.5
+            w = torch.randn(c2, c1, 3, 3, generator=gen, device=device) / math.sqrt(9 * c1)
+            top, bottom = halo.exchange_rows(y[:, :, rows], space)
+            y_ext = torch.cat([t for t in (top, y[:, :, rows], bottom) if t is not None], dim=2)
+            y_ext = y_ext.contiguous(memory_format=torch.channels_last)
+            got = conv_fused.relu_affine_conv3x3(y_ext, a, b, w)
+            ref = conv_fused.relu_affine_conv3x3_plain(y_ext, a, b, w)
+            whole = conv_fused.relu_affine_conv3x3_plain(y, a, b, w)[:, :, rows]
+            own = got[:, :, int(top is not None):got.shape[2] - int(bottom is not None)]
+            scale = ref.abs().max().item()
+            err = max((got - ref).abs().max().item(), (own - whole).abs().max().item()) / scale
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"fused conv on halo-extended y, {level} {dtype}: error "
+                                     f"{err:.2e} of max|ref|, tolerance {TOL[dtype]}")
+            out[f"{level}_{str(dtype).split('.')[-1]}"] = err
+    return out
+
+
 def md_rank(spec: dict, fits: dict, device) -> dict:
-    """All of phase 13's work on one of the two ranks that share the
-    device, in one process start: the step checks on the 1-D data mesh
+    """All of phases 13 and 14's work on one of the two ranks that share
+    the device, in one process start: the step checks on the 1-D data mesh
     (md_steps), the fit through the replicated cache with both ranks on one
-    node, then its resume through the pod-sharded cache with each rank a
+    node; then phase 14 on a 1 x 2 data x space mesh: the step checks, the
+    fused conv on halo-extended rows (sp_halo_parity) and a spatial fit;
+    then phase 13's resume through the pod-sharded cache with each rank a
     node of its own (LOCAL_WORLD_SIZE, which mesh.detect_n_pods reads, as
     ``launch.spawn(pods=2)`` sets it). Each part's seconds on this rank."""
-    from floodplanet_code_tpu_torch.parallel.mesh import make_mesh
+    from floodplanet_code_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
     out, seconds = {}, {}
     t0 = time.perf_counter()
@@ -2813,6 +2951,14 @@ def md_rank(spec: dict, fits: dict, device) -> dict:
     t0 = time.perf_counter()
     out["replicated"] = md_fit_rank(fits["replicated"], fits["exp"], None, device)
     seconds["fit_replicated"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh_2d(1, 2)
+    out["spatial_steps"] = md_steps(spec, device, mesh)
+    out["spatial_steps"]["halo_parity"] = sp_halo_parity(spec, mesh, device)
+    seconds["spatial_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spatial"] = md_fit_rank(fits["spatial"], fits["exp_spatial"], None, device)
+    seconds["fit_spatial"] = time.perf_counter() - t0
     os.environ.update(LOCAL_WORLD_SIZE="1", LOCAL_RANK="0", GROUP_RANK=os.environ["RANK"])
     t0 = time.perf_counter()
     out["pod"] = md_fit_rank(fits["pod"], fits["exp"], fits["pod_spec"], device)
@@ -2935,14 +3081,162 @@ def _md_rel_checks(name: str, got: dict, want: dict) -> dict:
     return worst
 
 
-def md_fit_forwards(timing: dict, n_loader: int, n_valid: int, coordinator: bool) -> int:
+def md_fit_forwards(timing: dict, n_loader: int, n_valid: int, coordinator: bool,
+                    panel_every: int = FIT_LOG_IMAGE_ITER) -> int:
     """One rank's forwards in a fit: train steps, validation batches, and
-    on the coordinator the image panels."""
+    on the coordinator the image panels (one every ``panel_every`` steps)."""
     epochs = timing["epochs"]
     steps = sum(e["n_train_batches"] for e in epochs)
     g0 = epochs[0]["epoch"] * n_loader
-    panels = sum(1 for g in range(g0 + 1, g0 + steps + 1) if g % FIT_LOG_IMAGE_ITER == 0)
+    panels = sum(1 for g in range(g0 + 1, g0 + steps + 1) if g % panel_every == 0)
     return steps + len(epochs) * min(MD_LIMIT_VAL, n_valid) + (panels if coordinator else 0)
+
+
+def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: bool) -> dict:
+    """Phase 14's step checks against the one-rank steps on the same global
+    batch: the f32 loss (1e-4), the first step's gradients within
+    SP_GRAD_TOL of their norm (GRAD_MAX_TOL of their largest element), its
+    running statistics and confusion, the parameters after MD_STEPS steps
+    (phase 8's rule), the eval step with padded rows, the bf16 losses
+    falling, the augment step bit for bit (each rank augments the whole
+    global batch: one data row), the fused conv on halo-extended rows, the
+    exact launches per rank; on a card the bf16 step's time, peak memory
+    and collectives against one rank's."""
+    out = {}
+    for r in ranks:
+        if not _rel(r["f32_losses"][0], one["f32_losses"][0]) <= 1e-4:
+            raise AssertionError(f"spatial f32 loss {r['f32_losses']} vs 1 rank {one['f32_losses']}")
+        rels = grad_rels({k: v.float() for k, v in r["grads"].items()},
+                         {k: v.float() for k, v in one["grads"].items()})
+        worst = {"rel_max": max(v[0] for v in rels.values()),
+                 "rel_norm": max(v[1] for v in rels.values())}
+        if not (worst["rel_norm"] <= SP_GRAD_TOL and worst["rel_max"] <= GRAD_MAX_TOL):
+            raise AssertionError(f"spatial f32 gradients vs 1 rank: {worst}")
+        out["f32_grads"] = worst
+        for name in ("stats1", "params", "stats"):
+            out[f"f32_{name}"] = _md_rel_checks(f"spatial {name}", r[name], one[name])
+        if any(not torch.equal(r[k][n], ranks[0][k][n]) for k in ("params", "stats")
+               for n in r[k]):
+            raise AssertionError("the space ranks' states differ after the spatial steps")
+        for name, got, want in (("train", r["f32_confusion"], one["f32_confusion"]),
+                                ("eval", r["eval"]["confusion"], one["eval"]["confusion"])):
+            moved = np.abs(got - want).sum() / 2
+            if not moved <= 1e-3 * want.sum():
+                raise AssertionError(f"spatial {name} confusion: {moved} pixels moved")
+            out[f"{name}_confusion_moved"] = float(moved)
+        out["eval_loss_rel"] = _rel(r["eval"]["loss"], one["eval"]["loss"])
+        if not out["eval_loss_rel"] <= 1e-4:
+            raise AssertionError(f"spatial eval loss rel {out['eval_loss_rel']:.2e}")
+        if not r["bf16_losses"][-1] < r["bf16_losses"][0]:
+            raise AssertionError(f"spatial bf16 losses did not fall: {r['bf16_losses']}")
+        for key in ("image", "target"):
+            if not torch.equal(r["augment"][key], one["augment"][key]):
+                raise AssertionError(f"spatial augment step: {key} differs from one rank's")
+        if r["launches"] != expected:
+            raise AssertionError(f"spatial launches {r['launches']}, expected {expected}")
+    out["f32_loss_rel"] = [max(_rel(r["f32_losses"][k], one["f32_losses"][k]) for r in ranks)
+                           for k in range(MD_STEPS)]
+    out["halo_parity"] = {k: max(r["halo_parity"][k] for r in ranks)
+                          for k in ranks[0]["halo_parity"]}
+    out["bf16_losses"] = ranks[0]["bf16_losses"]
+    out["collectives_per_rank"] = [r["collectives"] for r in ranks]
+    out["launches_per_rank"] = ranks[0]["launches"]
+    out["launches"] = {"conv": sum(r["launches"][k] for r in ranks for k in
+                                   ("eval", "f32_steps", "bf16_steps")),
+                       "shear": sum(r["launches"]["augment"] for r in ranks)}
+    halo = [r["collectives"].get("halo", {"count": 0, "ms": 0.0}) for r in ranks]
+    if on_card:
+        out["bf16_step_ms"] = {"one_rank": one["bf16_step_ms"],
+                               "two_ranks": [r["bf16_step_ms"] for r in ranks]}
+        out["bf16_step_memory_mib"] = {"one_rank": one["bf16_step_memory_mib"],
+                                       "two_ranks": [r["bf16_step_memory_mib"] for r in ranks]}
+        log(f"  spatial bf16 step (1 x 2 data x space, {MD_BATCH} rows of {TILE // 2} image rows "
+            f"per rank): {[round(r['bf16_step_ms'], 2) for r in ranks]} ms per rank against "
+            f"{one['bf16_step_ms']:.2f} ms on one rank; peak memory "
+            f"{[round(r['bf16_step_memory_mib']['peak'], 1) for r in ranks]} MiB per rank "
+            f"against {one['bf16_step_memory_mib']['peak']:.1f} MiB (added by the step "
+            f"{[round(r['bf16_step_memory_mib']['added'], 1) for r in ranks]} against "
+            f"{one['bf16_step_memory_mib']['added']:.1f}) [{card}]")
+    log(f"  spatial vs 1 rank (f32): loss rel per step {[f'{v:.2e}' for v in out['f32_loss_rel']]}, "
+        f"grads {out['f32_grads']}, params after {MD_STEPS} steps {out['f32_params']}, eval loss "
+        f"rel {out['eval_loss_rel']:.2e}; halo exchanges per step {[h['count'] for h in halo]} "
+        f"taking {[round(h['ms'], 2) for h in halo]} ms (timed alone, host clock); fused conv on "
+        f"halo-extended rows {out['halo_parity']}; launches per rank {out['launches_per_rank']} "
+        f"[{card}]")
+    return out
+
+
+def sp_ext_overhead(card: str) -> dict:
+    """What joining the halo row costs the fused conv, per level of the
+    bf16 spatial step on a 1 x 2 mesh (MD_BATCH rows of H / 2 image rows,
+    one neighbour row; CUDA events, this process alone on the card): the
+    kernel on the block alone, the copy that joins the row (cat into a
+    channels_last y_ext) and the kernel on y_ext; the overhead is the last
+    two less the first, what an output-row offset argument of the kernel
+    would save at most."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, total = [], {"block_ms": 0.0, "join_ms": 0.0, "ext_ms": 0.0}
+    for name, h, c1, c2 in LEVELS:
+        y, a, b, wt = kernel_inputs(gen, MD_BATCH, h // 2, h, c1, c2, torch.bfloat16)
+        halo_row = y[:, :, :1].clone()
+        packed = conv_fused.pack(a, b, wt, y.dtype)
+
+        def join():
+            return torch.cat([halo_row, y], dim=2).contiguous(memory_format=torch.channels_last)
+
+        y_ext = join()
+        row = {"level": name, "block_ms": cuda_ms(
+            lambda: conv_fused.relu_affine_conv3x3_cuda(y, a, b, wt, packed), 10),
+            "join_ms": cuda_ms(join, 10), "ext_ms": cuda_ms(
+            lambda: conv_fused.relu_affine_conv3x3_cuda(y_ext, a, b, wt, packed), 10)}
+        for k in total:
+            total[k] += row[k]
+        rows.append(row)
+        del y, y_ext, halo_row, packed
+    total["overhead_ms"] = total["join_ms"] + total["ext_ms"] - total["block_ms"]
+    total["overhead_frac"] = total["overhead_ms"] / total["block_ms"]
+    log(f"  fused conv on y_ext vs the block alone, nine levels of one forward per rank "
+        f"(bf16, {MD_BATCH} x H/2 rows): block {total['block_ms']:.3f} ms, join "
+        f"{total['join_ms']:.3f} ms, y_ext {total['ext_ms']:.3f} ms: overhead "
+        f"{total['overhead_ms']:.3f} ms ({total['overhead_frac']:.1%}) [{card}]")
+    return dict(total, levels=rows)
+
+
+def sp_fit_checks(run: list, one_losses: list, dp_losses: list, n_loader: int,
+                  n_valid_batches: int, card: str, on_card: bool) -> dict:
+    """Phase 14's 2-rank spatial fit: rank 0 alone writes, both ranks saw
+    the same epochs, finite per-epoch losses, exact conv launches (the
+    coordinator's image panels at full height included), its steady
+    tiles/s. Its losses' largest relative gap to the one-rank fit's and to
+    the 2-rank data-parallel fit's is reported, not held to a bound: one
+    rank's own bf16 fit moves ~2% between runs on the card (PERF.md §7),
+    so a bound there would sit inside the noise."""
+    if run[1]["writes"] != 0 or run[0]["writes"] == 0:
+        raise AssertionError(f"spatial fit: checkpoint writes per rank {[r['writes'] for r in run]}")
+    if run[0]["saves"] != run[1]["saves"] or run[0]["best"] != run[1]["best"]:
+        raise AssertionError("spatial fit: the ranks saw different epochs or bests")
+    losses = [s["losses"] for s in run[0]["saves"]]
+    if [s["epoch"] for s in run[0]["saves"]] != list(range(MD_EPOCHS)):
+        raise AssertionError(f"spatial fit ran epochs {[s['epoch'] for s in run[0]['saves']]}")
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f"non-finite spatial fit losses {losses}")
+    rel, rel_dp = (max(_rel(a, b) for pa, pb in zip(losses, ref) for a, b in zip(pa, pb))
+                   for ref in (one_losses, dp_losses))
+    timing = run[0]["timing"]
+    want = [9 * md_fit_forwards(timing, n_loader, n_valid_batches, r["rank"] == 0,
+                                SP_LOG_IMAGE_ITER) if on_card else 0 for r in run]
+    got = [r["launches"] for r in run]
+    if got != want:
+        raise AssertionError(f"spatial fit: conv launches per rank {got}, expected {want}")
+    out = {"losses": losses, "loss_rel": rel, "loss_rel_data_parallel": rel_dp,
+           "launches_per_rank": got,
+           "steady_train_tiles_per_s": timing["steady_train_tiles_per_sec"],
+           "val_iou": [s["metric"] for s in run[0]["saves"]]}
+    log(f"  spatial fit: losses {[[round(v, 4) for v in p] for p in losses]}, worst rel "
+        f"{rel:.2e} to one rank's, {rel_dp:.2e} to the data-parallel fit's (reported, not "
+        f"held); conv launches per rank {got}; steady train tiles/s "
+        f"{out['steady_train_tiles_per_s']} (2 ranks sharing the card) [{card}]")
+    return out
 
 
 def run_multi_device(card: str, device="cuda") -> dict:
@@ -2966,8 +3260,8 @@ def run_multi_device(card: str, device="cuda") -> dict:
                        sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0,
                        seed_num=0, train_split_pct=0.8)
     batch = next(iter(BatchLoader(ds, MD_BATCH, shuffle=True, n_workers=8)))
-    spec = {"base": BASE, "steps": MD_STEPS, "fixed_steps": MD_FIXED_STEPS, "seed": 3,
-            "n_valid": MD_BATCH - MD_PAD,
+    spec = {"base": BASE, "tile": TILE, "steps": MD_STEPS, "fixed_steps": MD_FIXED_STEPS,
+            "seed": 3, "n_valid": MD_BATCH - MD_PAD,
             "batch": {k: batch[k] for k in ("image", "target")}}
     result = {}
     with Phase("multi-device: one rank"):
@@ -2986,6 +3280,7 @@ def run_multi_device(card: str, device="cuda") -> dict:
     # two more epochs through the pod-sharded cache as 2 pods; and the
     # same 2 epochs on one rank.
     exp, exp_one = os.path.join(WORK, "md_exp"), os.path.join(WORK, "md_exp_one")
+    exp_sp = os.path.join(WORK, "sp_exp")
     n_valid = len(build_dataset("floodplanet", "valid",
                                 generate_image_slice_object(TILE, TILE, stride=TILE),
                                 sensor="PS", channels="ALL", root_dir=data_root,
@@ -2999,9 +3294,14 @@ def run_multi_device(card: str, device="cuda") -> dict:
 
     fit_args = {"exp": exp, "replicated": md_cfg(exp, MD_EPOCHS),
                 "pod": md_cfg(exp, 2 * MD_EPOCHS, "tpu.device_cache_shard=pod"),
-                "pod_spec": {"tile": TILE, "batch": TRAIN_BATCH, "root": data_root}}
+                "pod_spec": {"tile": TILE, "batch": TRAIN_BATCH, "root": data_root},
+                "exp_spatial": exp_sp,
+                "spatial": md_cfg(exp_sp, MD_EPOCHS, "tpu.spatial_shards=2",
+                                  f"log_image_iter={SP_LOG_IMAGE_ITER}")}
     with Phase(f"multi-device: two ranks on one device: the steps, a {MD_EPOCHS}-epoch fit "
-               f"(replicated cache), resumed to {2 * MD_EPOCHS} (pod-sharded cache, 2 pods)"):
+               f"(replicated cache); spatial partitioning (phase 14): the steps on a 1 x 2 "
+               f"data x space mesh and a {MD_EPOCHS}-epoch spatial fit; the data-parallel fit "
+               f"resumed to {2 * MD_EPOCHS} (pod-sharded cache, 2 pods)"):
         t0 = time.perf_counter()
         out = launch.spawn(md_rank, (spec, fit_args), devices=[dev, dev], timeout_s=300,
                            join_timeout_s=900)
@@ -3010,7 +3310,9 @@ def run_multi_device(card: str, device="cuda") -> dict:
     log(f"  rank 0: {({k: round(v, 2) for k, v in out[0]['seconds'].items()})} s of "
         f"{result['spawn_s']:.2f} s from spawn to join [{card}]")
     ranks = [r["steps"] for r in out]
+    sp_ranks = [r["spatial_steps"] for r in out]
     fits = {k: [r[k] for r in out] for k in ("replicated", "pod")}
+    sp_fit = [r["spatial"] for r in out]
     # The data-parallel step against the one-rank step on the same batch.
     for r in ranks:
         loss_rel = _rel(r["f32_losses"][0], one["f32_losses"][0])
@@ -3031,6 +3333,7 @@ def run_multi_device(card: str, device="cuda") -> dict:
                               for k in range(MD_STEPS)]
     result["eval_loss_rel"] = eval_rel
     result["bf16_losses"] = ranks[0]["bf16_losses"]
+    result["collectives_per_rank"] = [r["collectives"] for r in ranks]
     # The augment step: the ranks' rows of the globally drawn batch, bit for bit.
     for key in ("image", "target"):
         if not torch.equal(torch.cat([r["augment"][key] for r in ranks]), one["augment"][key]):
@@ -3062,7 +3365,10 @@ def run_multi_device(card: str, device="cuda") -> dict:
         f"{MD_STEPS} steps {result['f32_params']}, eval loss rel {eval_rel:.2e}; bf16 losses "
         f"{[round(v, 4) for v in result['bf16_losses']]}; augment bit-identical; launches "
         f"per rank {ranks[0]['launches']} [{card}]")
-    del ranks, one
+    spatial = sp_step_checks(sp_ranks, one, expected, card, on_card)
+    if on_card:
+        spatial["y_ext_overhead"] = sp_ext_overhead(card)
+    del ranks, one, sp_ranks
 
     timing, timing_pod = fits["replicated"][0]["timing"], fits["pod"][0]["timing"]
     with Phase(f"multi-device: the same {MD_EPOCHS} epochs on one rank"):
@@ -3099,6 +3405,12 @@ def run_multi_device(card: str, device="cuda") -> dict:
             raise AssertionError(f"{name} fit: conv launches per rank {got_l}, expected {want_l}")
         fit_launches[name] = got_l
     launches["conv"] += sum(sum(v) for v in fit_launches.values())
+    spatial["fit"] = sp_fit_checks(sp_fit, one_losses, losses[:MD_EPOCHS], n_loader,
+                                   n_valid_batches, card, on_card)
+    spatial["launches"]["conv"] += sum(spatial["fit"]["launches_per_rank"])
+    spatial["seconds_per_rank"] = {k: out[0]["seconds"][k]
+                                   for k in ("spatial_steps", "fit_spatial")}
+    result["spatial"] = spatial
     result["fit"] = {"losses": losses, "one_rank_losses": one_losses, "loss_rel": fit_rel,
                      "pod_batches_equal": pod_batches, "launches_per_rank": fit_launches,
                      "steady_train_tiles_per_s": timing["steady_train_tiles_per_sec"],
@@ -3228,12 +3540,15 @@ def main() -> int:
         # predict, the daemon and batch_infer; none on the cuDNN run) and
         # the model tools (9 per forward of the CV fits and validation, the
         # soups, the ensemble, the exported programs, the artifact daemon
-        # and the imported models; none on the cuDNN runs).
+        # and the imported models; none on the cuDNN runs), every rank of
+        # the multi-device phase, and spatial partitioning (9 per forward
+        # of each rank's block, on its rows and its neighbours' edge rows,
+        # and per full-height image panel).
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
                      + sum(fit["launches"].values()) + sum(evaluation["launches"].values())
                      + sum(tools["launches"].values())
                      + data_tools["launches"][conv_fused.KERNEL]
-                     + multi["launches"]["conv"]),
+                     + multi["launches"]["conv"] + multi["spatial"]["launches"]["conv"]),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
                              "fit": sum(fit["launches"].values()),
@@ -3241,7 +3556,8 @@ def main() -> int:
                              "tools": sum(tools["launches"].values()),
                              # fused_bn=false and the rest: no kernel on the path
                              "data_tools": data_tools["launches"][conv_fused.KERNEL],
-                             "multi_device": multi["launches"]["conv"]},
+                             "multi_device": multi["launches"]["conv"],
+                             "spatial": multi["spatial"]["launches"]["conv"]},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -3260,13 +3576,15 @@ def main() -> int:
         "source": "floodplanet_code_tpu_torch/ops/csrc/rotate.cu",
         "replaces": "floodplanet_code_tpu/ops/rotate.py:193",
         # 3 per augment step of the training phase and of each rank's
-        # augment step in the multi-device phase; the data-tools phase's
-        # rotations are the roll shear and map_coordinates.
+        # augment step in the multi-device and spatial phases; the
+        # data-tools phase's rotations are the roll shear and
+        # map_coordinates.
         "launches": (train["launches"][rotate.KERNEL] + data_tools["launches"][rotate.KERNEL]
-                     + multi["launches"]["shear"]),
+                     + multi["launches"]["shear"] + multi["spatial"]["launches"]["shear"]),
         "launches_by_path": {"training": train["launches"][rotate.KERNEL],
                              "data_tools": data_tools["launches"][rotate.KERNEL],
-                             "multi_device": multi["launches"]["shear"]},
+                             "multi_device": multi["launches"]["shear"],
+                             "spatial": multi["spatial"]["launches"]["shear"]},
         # Parity over both shapes, axes, orders and types, and the timed launch.
         "max_abs_err": max(shear_worst[torch.bfloat16][1], shear_worst[torch.float32][1],
                            shear_row["max_abs_err"]),

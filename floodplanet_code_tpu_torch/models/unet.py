@@ -28,6 +28,14 @@ Port choices:
   BatchNorm takes its statistics over a process group's whole batch
   (SyncBN, ops/batchnorm.py), in all three forms (the fused pair's BN_0,
   ``bn_relu_train``, the flax BatchNorm). Eval mode never reads it.
+- ``space_group`` (``set_space_group``; spatial partitioning, which the JAX
+  package leaves to GSPMD): each rank holds a block of the image's rows, in
+  the group's rank order, and every 3x3 conv and 2x upsample reads one row
+  of each neighbour's block (``parallel/halo.py``), so that every rank
+  computes the whole image's output rows of its block. The 2x2 max pools
+  and 1x1 convs are local; every level's block has an even height when
+  ``H % (16 * spatial_shards) == 0`` (``parallel/mesh.py::check_height``).
+  None (one device, data parallelism, serving, export): no exchange.
 - ``conv_impl='pallas_fused'`` (the JAX config's name, kept so experiment
   configs load unchanged) runs every DoubleConv's middle BN -> ReLU -> conv
   boundary as one hand-written CUDA kernel (ops/conv_fused.py) on all nine
@@ -37,6 +45,8 @@ Port choices:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,6 +54,7 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from floodplanet_code_tpu_torch.ops.batchnorm import batch_stats, bn_relu_train
 from floodplanet_code_tpu_torch.ops.conv_fused import pack, relu_affine_conv3x3
+from floodplanet_code_tpu_torch.parallel import halo
 
 CONV_IMPLS = ("xla", "pallas_fused")
 # Running statistics move as MOMENTUM*old + (1-MOMENTUM)*batch: the value
@@ -165,11 +176,34 @@ def set_bn_group(model: nn.Module, group) -> nn.Module:
     return model
 
 
+def set_space_group(model: nn.Module, group) -> nn.Module:
+    """Treat every activation as this rank's block of image rows within
+    ``group`` (spatial partitioning: the 3x3 convs and 2x upsamples exchange
+    edge rows over it); None: whole images. Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, (DoubleConv, Up)):
+            module.space_group = group
+    return model
+
+
 class DoubleConv(nn.Module):
     """(conv3x3 => BN => ReLU) * 2 (reference unet.py:6-20).
 
     ``fused_pair``: BN_0's apply + ReLU and conv1 run as the fused op, under
     ``conv_impl="pallas_fused"`` with ``fused_bn`` (JAX models/unet.py:137).
+
+    With a ``space_group`` each conv runs on the block extended by its
+    neighbours' edge rows (``halo.apply_on_rows``). For the fused op those
+    are rows of y, the pre-BN conv0 output: the kernel pads z = relu(y*a +
+    b), not y, with zeros (``ops/conv_fused.py``), so a halo row stands for
+    the neighbour's z only as a row of y, and at the image edge no row is
+    joined and the kernel's own padding applies. ``a`` and ``b`` are the
+    global fold of this block's rows alone (SyncBN over every rank). The
+    op's backward gives ``dy`` for the joined rows, which the exchange sends
+    to their owners, and ``da``, ``db`` from the recomputed z of every row
+    it read: each z row's cotangent is split between the ranks whose output
+    rows read it, and the gradient all-reduce of the train step adds the
+    parts into the whole.
     """
 
     def __init__(
@@ -192,6 +226,7 @@ class DoubleConv(nn.Module):
         self.bn1 = bn(out_channels)
         self._fused = (None, None)  # (key, (a, b, packed)), see _fused_operands
         self._frozen = False  # see freeze_fused_operands
+        self.space_group = None  # set_space_group
 
     def freeze_fused_operands(self, dtype: torch.dtype) -> None:
         """Fold BN_0 and pack the fused op's operands for activations of
@@ -246,13 +281,15 @@ class DoubleConv(nn.Module):
         return self._fused[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _conv(x, self.conv0)
+        group = self.space_group
+        y = halo.apply_on_rows(lambda t: _conv(t, self.conv0), x, group)
         if self.fused_pair:
             # BN_0's apply + ReLU run inside Conv_1's kernel.
             a, b, packed = self._fused_operands(y)
-            y = relu_affine_conv3x3(y, a, b, self.conv1.weight, packed)
+            y = halo.apply_on_rows(
+                lambda t: relu_affine_conv3x3(t, a, b, self.conv1.weight, packed), y, group)
         else:
-            y = _conv(self.bn0(y), self.conv1)
+            y = halo.apply_on_rows(lambda t: _conv(t, self.conv1), self.bn0(y), group)
         return self.bn1(y)
 
 
@@ -270,17 +307,74 @@ class Down(nn.Module):
         return self.double_conv(F.max_pool2d(x, 2))
 
 
-def _upsample2x(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+def _upsample2x(x: torch.Tensor, align_corners: bool = False, group=None) -> torch.Tensor:
     """Bilinear 2x upsample (reference nn.Upsample(bilinear), unet.py:43-45).
 
     ``align_corners=False`` is the half-pixel convention with clamped edges,
     which is what the JAX package's dilated-conv form computes;
     ``align_corners=True`` serves checkpoints imported from the reference.
+
+    ``group`` (spatial partitioning): x is this rank's block of rows; the
+    output is the whole image's upsample's rows of this block
+    (``_upsample2x_rows``).
     """
+    if group is not None:
+        return _upsample2x_rows(x, align_corners, group)
     h, w = x.shape[-2:]
     return F.interpolate(
         x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _align_corners_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] f32 linear-interpolation matrix of torch's
+    ``align_corners=True`` (the JAX package's ``_align_corners_matrix``,
+    models/unet.py:329-342 there), built once per size and device; never
+    an inference tensor (an eval step may build it, a train step reuse it)."""
+    with torch.inference_mode(False):
+        if n_in == 1:
+            return torch.ones((n_out, 1), device=device)
+        src = torch.arange(n_out, dtype=torch.float64) * (n_in - 1) / (n_out - 1)
+        i0 = src.floor().long()
+        i1 = torch.clamp(i0 + 1, max=n_in - 1)
+        frac = (src - i0).float()
+        mat = torch.zeros((n_out, n_in))
+        rows = torch.arange(n_out)
+        mat.index_put_((rows, i0), 1.0 - frac, accumulate=True)
+        mat.index_put_((rows, i1), frac, accumulate=True)
+        return mat.to(device)
+
+
+def _upsample2x_rows(x: torch.Tensor, align_corners: bool, group) -> torch.Tensor:
+    """The 2x upsample of a height-sharded x: this block's output rows.
+
+    One row of each neighbour's block is joined (``halo.exchange_rows``);
+    none at the image edge, where the interpolation clamps as the whole
+    image's does. Half-pixel: output row j reads source rows near
+    ``(j + 0.5) / 2 - 0.5``, so the extended block's upsample equals the
+    whole image's on this block's rows, and the two output rows of each
+    joined row are dropped. ``align_corners=True``: the source coordinate
+    ``o * (H - 1) / (2H - 1)`` depends on the whole height H, and output
+    block s reads source rows ``h*s - 1`` .. ``h*(s + 1)``: the rows of the
+    whole image's interpolation matrix that belong to this block, over the
+    extended block's columns, then the same along W, in f32 and rounded
+    once to x's dtype, as ``F.interpolate`` computes the whole image.
+    """
+    top, bottom = halo.exchange_rows(x, group)
+    ext = torch.cat([t for t in (top, x, bottom) if t is not None], dim=2)
+    h, w = x.shape[-2:]
+    if not align_corners:
+        out = F.interpolate(ext, size=(2 * ext.shape[2], 2 * w), mode="bilinear",
+                            align_corners=False)
+        return out[:, :, 2 * int(top is not None):out.shape[2] - 2 * int(bottom is not None)]
+    s, n = halo.position(group)
+    lo = h * s - int(top is not None)
+    mh = _align_corners_matrix(h * n, 2 * h * n, x.device)[2 * h * s:2 * h * (s + 1),
+                                                           lo:lo + ext.shape[2]]
+    out = torch.einsum("oh,bchw->bcow", mh, ext.float())
+    out = torch.einsum("pw,bcow->bcop", _align_corners_matrix(w, 2 * w, x.device), out)
+    return out.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -310,12 +404,13 @@ class Up(nn.Module):
     ):
         super().__init__()
         self.align_corners = align_corners
+        self.space_group = None  # set_space_group
         self.double_conv = DoubleConv(
             in_channels, out_channels, mid_channels, conv_impl=conv_impl, fused_bn=fused_bn
         )
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = _pad_to_match(_upsample2x(x1, self.align_corners), x2)
+        x1 = _pad_to_match(_upsample2x(x1, self.align_corners, self.space_group), x2)
         return self.double_conv(torch.cat([x2, x1], dim=1))
 
 

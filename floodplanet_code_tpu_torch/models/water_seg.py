@@ -27,6 +27,7 @@ from floodplanet_code_tpu_torch.models.unet import (
     UNetEncoder,
     _conv,
     set_bn_group,
+    set_space_group,
 )
 
 # Fixed aux-feature ordering (reference ef_model.py:28-44 checks in this order).
@@ -145,7 +146,9 @@ def resolve_conv_impl(cfg) -> str:
     activation around it. Under ``torch.distributed`` nothing is
     partitioned: each rank runs the whole forward on its own rows, and the
     function per sample is the one the fused kernel computes on one
-    device."""
+    device. Under spatial partitioning the kernel runs on each rank's block
+    of rows extended by its neighbours' edge rows (``models/unet.py::
+    DoubleConv``)."""
     if not cfg.select("tpu.use_pallas", True):
         return "xla"
     return cfg.select("tpu.conv_impl", "xla")
@@ -164,6 +167,7 @@ def build_model(
     dtype: torch.dtype = torch.float32,
     device="cuda",
     bn_group=None,
+    space_group=None,
     **model_kwargs,
 ) -> nn.Module:
     """Model factory: an eval-mode model with f32 params on ``device``.
@@ -176,7 +180,9 @@ def build_model(
     JAX-only implementation choices ``pool_impl``/``upsample_impl`` are
     accepted and ignored. ``bn_group`` (the JAX ``bn_axis_name``): a
     ``torch.distributed`` group over which train-mode BatchNorm takes its
-    statistics (SyncBN, ``set_bn_group``). Raises without a card unless
+    statistics (SyncBN, ``set_bn_group``). ``space_group``: spatial
+    partitioning, the group whose ranks hold the blocks of rows of the same
+    examples (``set_space_group``). Raises without a card unless
     ``device="cpu"``.
     """
     device = resolve_device(device)
@@ -197,4 +203,5 @@ def build_model(
     else:
         n_in = in_channels["ms_image"]
     model = set_bn_group(model_cls(n_in, n_classes, dtype=dtype, **model_kwargs), bn_group)
+    set_space_group(model, space_group)
     return model.to(device=device, memory_format=torch.channels_last).eval()

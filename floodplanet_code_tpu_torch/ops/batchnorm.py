@@ -17,9 +17,10 @@ its running update takes the unbiased variance.
 ``group`` (the JAX ``axis_name``, SyncBN): each rank holds its rows of the
 batch and the statistics are the whole batch's. Forward: mean and E[x^2]
 are summed over the group and divided by its size, as ``pmean`` does (the
-local counts are equal by construction; an asynchronous device assert
-checks it). Backward: ``sum_dz``, ``sum_dz_xhat`` and the count are summed
-over the group for ``dx``. dscale and dbias are returned as this rank's
+local counts are equal by construction, under spatial partitioning too,
+where every rank holds B/dp examples of H/sp image rows; an asynchronous
+device assert checks it). Backward: ``sum_dz``, ``sum_dz_xhat`` and the
+count are summed over the group for ``dx``. dscale and dbias are returned as this rank's
 LOCAL sums: the train step sums every gradient over the group once
 (``parallel/shard_step.py``), which makes them global there. (JAX returns
 them global, ``:99-103`` there, because its typed AD adds no second sum.)

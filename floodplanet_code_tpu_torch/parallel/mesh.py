@@ -7,17 +7,19 @@ the k-th block of a global batch. Here each device is one rank, ranks are
 laid out row-major over the axes (rank = pod * data + d on the hybrid
 mesh), and ``local_rows(mesh, batch)`` is rank k's block: the same
 example -> device assignment. A ``Mesh`` holds one process group per axis
-(``dist.new_group``, made once per layout) and the group of every batch
-axis together, over which gradients, BatchNorm statistics, losses and
-confusion matrices are summed.
+(``dist.new_group``, made once per layout), the group of every batch axis
+together and the group of every axis: gradients, BatchNorm statistics,
+losses and confusion matrices are summed over the last (``all_group``),
+which is the batch group on a mesh without a ``space`` axis.
 
 ``make_mesh(n)`` raises when fewer (or more) than ``n`` ranks are in the
 world, where ``jax.devices()[:n]`` would quietly take what there is. A
 process that joined no group is a world of one rank.
 
-``make_mesh_2d`` builds the data x space layout; the steps raise for a
-``space`` axis above 1: spatial partitioning is not ported yet (ROADMAP.md
-Queue 1, PR 9).
+``make_mesh_2d`` builds the data x space layout of spatial partitioning
+(``tpu.spatial_shards``): rank (d, s) holds the rows of batch shard d and
+the block of image rows s (``local_height``); the ranks of one data row
+exchange their edge rows (``parallel/halo.py``, over ``space_group``).
 """
 
 from __future__ import annotations
@@ -42,10 +44,11 @@ class Mesh:
     """Named axes over the ranks, row-major; ``rank`` is this process's.
 
     ``groups`` maps each axis to the group of the ranks that differ only
-    along it, and ``"batch"`` to the group of every batch axis (all but
-    ``space``). A group that spans the whole world is the default group
-    (``dist.group.WORLD``); every group is None in a process that joined
-    none (one rank), and the ops then sum nothing.
+    along it, ``"batch"`` to the group of every batch axis (all but
+    ``space``) and ``"all"`` to the group of every axis. A group that
+    spans the whole world is the default group (``dist.group.WORLD``);
+    every group is None in a process that joined none (one rank), and the
+    ops then sum nothing.
     """
 
     axis_names: tuple
@@ -100,7 +103,8 @@ def _build(axis_names: tuple, sizes: tuple) -> Mesh:
     if key not in _GROUPS:
         groups = {}
         batch = tuple(a for a in axis_names if a != "space")
-        for name, free in [(a, (a,)) for a in axis_names] + [("batch", batch)]:
+        for name, free in ([(a, (a,)) for a in axis_names]
+                           + [("batch", batch), ("all", tuple(axis_names))]):
             lines = _ranks_along(axis_names, sizes, free)
             if not collectives.active():
                 groups[name] = None  # one rank: nothing to sum over
@@ -123,16 +127,20 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
 
 
 def make_mesh_2d(dp: int, sp: int, axis_names: tuple = ("data", "space")) -> Mesh:
-    """data x space layout (the JAX ``make_mesh_2d``). The steps refuse a
-    ``space`` axis above 1 (``check_data_mesh``)."""
+    """data x space layout (the JAX ``make_mesh_2d``): ``dp`` batch shards,
+    each split over ``sp`` ranks by image rows (``local_height``)."""
     return _build(tuple(axis_names), (int(dp), int(sp)))
 
 
-def make_hybrid_mesh(n_pods: int, dp_per_pod: int, axis_names: tuple = ("pod", "data")) -> Mesh:
+def make_hybrid_mesh(n_pods: int, dp_per_pod: int, axis_names: tuple = ("pod", "data"),
+                     sp: int = 1) -> Mesh:
     """pod x data mesh: the slow axis across nodes, the fast one within a
     node. The batch shards over both, as on the flat mesh, so per-rank
     loading does not change; the pod group serves the pod-sharded scene
-    cache (data/device_cache.py)."""
+    cache (data/device_cache.py). ``sp`` > 1 adds a ``space`` axis last
+    (pod x data x space): the blocks of one example's rows on one node."""
+    if sp > 1:
+        return _build(tuple(axis_names) + ("space",), (int(n_pods), int(dp_per_pod), int(sp)))
     return _build(tuple(axis_names), (int(n_pods), int(dp_per_pod)))
 
 
@@ -156,33 +164,74 @@ def n_batch_shards(mesh: Mesh) -> int:
 
 
 def batch_group(mesh: Mesh):
-    """The group over every batch axis: gradients, BatchNorm statistics,
-    losses and confusion matrices are summed over it."""
+    """The group over every batch axis: the ranks that hold the same
+    image rows of different examples."""
     return mesh.groups.get("batch")
 
 
-def check_data_mesh(mesh: Mesh) -> None:
-    """Raise for a mesh the data-parallel steps cannot run."""
-    if mesh.shape.get("space", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with space={mesh.shape['space']}: spatial partitioning is not ported "
-            "yet (ROADMAP.md Queue 1, PR 9)"
-        )
+def all_group(mesh: Mesh):
+    """The group over every axis: gradients, BatchNorm statistics, losses,
+    confusion matrices and NaN flags are summed over it. Without a
+    ``space`` axis it is the batch group."""
+    return mesh.groups.get("all")
 
 
-def local_rows(mesh: Mesh, global_batch: int) -> slice:
-    """The rows of a global batch this rank holds: the block of its index
-    over the batch axes, row-major (the JAX ``batch_sharding``'s
-    assignment)."""
-    n = n_batch_shards(mesh)
-    if global_batch % n:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} batch shards")
+def n_space_shards(mesh: Mesh) -> int:
+    """Number of blocks the image rows split into (1: no spatial
+    partitioning)."""
+    return mesh.shape.get("space", 1)
+
+
+def space_group(mesh: Mesh):
+    """The group of the ranks that hold one batch shard's blocks of rows,
+    in row order (``parallel/halo.py`` exchanges edge rows over it); None
+    without spatial partitioning."""
+    return mesh.groups.get("space") if n_space_shards(mesh) > 1 else None
+
+
+def batch_shard(mesh: Mesh) -> tuple[int, int]:
+    """(this rank's batch-shard index, the number of batch shards): its
+    index over the batch axes, row-major. The ``sp`` ranks of one data row
+    share it."""
     coords = mesh.coords
     index = 0
     for a in batch_axes(mesh):
         index = index * mesh.shape[a] + coords[a]
+    return index, n_batch_shards(mesh)
+
+
+def local_rows(mesh: Mesh, global_batch: int) -> slice:
+    """The rows of a global batch this rank holds: the block of its batch
+    shard (the JAX ``batch_sharding``'s assignment)."""
+    index, n = batch_shard(mesh)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} batch shards")
     per = global_batch // n
     return slice(index * per, (index + 1) * per)
+
+
+def check_height(height: int, sp: int) -> None:
+    """Raise unless ``sp`` blocks of ``height`` rows keep every UNet level's
+    block even: ``height % (16 * sp) == 0``. Then each 2x2 max pool is
+    local to a rank and pad-to-match never pads the height. (The JAX
+    package accepts any height: GSPMD pads uneven shards.)"""
+    if sp > 1 and height % (16 * sp):
+        raise ValueError(
+            f"spatial partitioning over {sp} shards needs a height with "
+            f"height % (16 * spatial_shards) == 0; got {height} (% {16 * sp} = "
+            f"{height % (16 * sp)})"
+        )
+
+
+def local_height(mesh: Mesh, height: int) -> slice:
+    """This rank's block of ``height`` image rows: ``height // sp`` rows
+    from ``space_index * height // sp`` (all of them without a ``space``
+    axis). Raises unless ``height % (16 * sp) == 0`` (``check_height``)."""
+    sp = n_space_shards(mesh)
+    check_height(height, sp)
+    per = height // sp
+    s = mesh.coords.get("space", 0)
+    return slice(s * per, (s + 1) * per)
 
 
 def _state_tensors(state) -> list[torch.Tensor]:
@@ -204,7 +253,8 @@ def _state_tensors(state) -> list[torch.Tensor]:
 
 def replicate_state(state, mesh: Mesh):
     """Give every rank rank 0's train state (in place), one broadcast per
-    dtype over the batch group; returns ``state``. The JAX
+    dtype over the whole world (the data and the space ranks); returns
+    ``state``. The JAX
     ``replicate_state`` places one pytree on every device; here every rank
     built its own, and this makes them the same."""
     if mesh.size == 1 or not collectives.active():
@@ -215,7 +265,7 @@ def replicate_state(state, mesh: Mesh):
     with torch.no_grad():
         for tensors in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in tensors])
-            collectives.broadcast(flat, 0, batch_group(mesh))
+            collectives.broadcast(flat, 0)
             offset = 0
             for t in tensors:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))

@@ -2,11 +2,13 @@
 
 The JAX package runs one process per host, each driving that host's chips.
 Here one process drives one device, so a process is a rank and "hosts" are
-ranks throughout: each rank loads only its rows of every global batch
-(``BatchLoader(process_shard=(rank, world))``; the loader partitions the
-same seeded epoch order on every rank, so batch counts and example
-placement agree with no coordination traffic), and only rank 0 writes the
-experiment directory, checkpoints and TensorBoard.
+ranks throughout: each rank loads only its batch shard's rows of every
+global batch (``BatchLoader(process_shard=process_shard(mesh))``: its
+rank and the world, or under spatial partitioning its data row, whose
+ranks load the same rows; the loader partitions the same seeded epoch
+order on every rank, so batch counts and example placement agree with no
+coordination traffic), and only rank 0 writes the experiment directory,
+checkpoints and TensorBoard.
 
 A process joins a group from, in order:
 - the config's ``tpu.multihost`` block: ``coordinator_address``
@@ -27,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from floodplanet_code_tpu_torch.parallel import collectives
+from floodplanet_code_tpu_torch.parallel.mesh import batch_shard
 
 # How long a collective may wait for the other ranks before it raises:
 # a rank that died or diverged fails the others instead of hanging them.
@@ -88,10 +91,12 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def process_shard() -> tuple[int, int] | None:
-    """(rank, world size) for ``BatchLoader``, or None for one process."""
-    n = process_count()
-    return None if n <= 1 else (process_index(), n)
+def process_shard(mesh) -> tuple[int, int] | None:
+    """(this process's batch shard, the number of batch shards) of
+    ``mesh`` for ``BatchLoader``, or None for one shard: the ``sp`` ranks
+    of one data row load the same rows (``mesh.batch_shard``)."""
+    index, n = batch_shard(mesh)
+    return None if n <= 1 else (index, n)
 
 
 def sync(name: str = "sync") -> None:

@@ -25,15 +25,26 @@ and a replicated state, and runs:
 The eval step prefers the EMA parameters and masks padded rows through
 ``batch["valid"]``; its loss and confusion are the global ones. The
 train and eval steps are ``train/fit.py``'s with a ``group``: on one
-device they are the same code without the sums. ``fit_model`` builds its
-steps here, on one rank and on many.
+device they are the same code without the sums, and ``fit_model`` calls
+them directly with the mesh's every-axis group (``mesh.all_group``, the
+batch group on a mesh without a ``space`` axis). As the JAX
+``make_shard_train_step`` does, these refuse a mesh with a ``space``
+axis: the spatial fit runs the same steps with the model's space group
+set (the port's GSPMD step).
 """
 
 from __future__ import annotations
 
 from floodplanet_code_tpu_torch.data.augment import TransformParams
-from floodplanet_code_tpu_torch.parallel.mesh import Mesh, batch_group, check_data_mesh
+from floodplanet_code_tpu_torch.parallel.mesh import Mesh, batch_group
 from floodplanet_code_tpu_torch.train import fit
+
+
+def _check_data_mesh(mesh: Mesh) -> None:
+    if "space" in mesh.axis_names:
+        raise ValueError(
+            "make_shard_train_step is the data-parallel variant; spatial partitioning "
+            f"stays GSPMD-only (got mesh axes {mesh.axis_names})")
 
 
 def make_shard_train_step(
@@ -49,8 +60,9 @@ def make_shard_train_step(
     ``bn_group=batch_group(mesh)``; ``batch`` is this rank's rows. The
     state is updated in place, as ``make_train_step``'s. Augmentation runs
     before it, as its own step (``make_augment_step(..., mesh)``), as the
-    JAX fit runs it."""
-    check_data_mesh(mesh)
+    JAX fit runs it. Raises ``ValueError`` for a mesh with a ``space``
+    axis (JAX ``parallel/shard_step.py:77-81``)."""
+    _check_data_mesh(mesh)
     return fit.make_train_step(model, ignore_index, TransformParams(False, 0, False, 0, False, 0),
                            loss_cfg=loss_cfg, fuse_augmentation=False, ema_decay=ema_decay,
                            ema_warmup=ema_warmup, group=batch_group(mesh))
@@ -59,5 +71,5 @@ def make_shard_train_step(
 def make_shard_eval_step(model, mesh: Mesh, ignore_index: int):
     """``eval_step(state, batch) -> {"loss", "confusion", "logits"}`` with
     the global loss and confusion (this rank's logits)."""
-    check_data_mesh(mesh)
+    _check_data_mesh(mesh)
     return fit.make_eval_step(model, ignore_index, batch_group(mesh))

@@ -22,8 +22,16 @@
   (``parallel/launch.py``, ``parallel/multihost.py``); each rank loads its
   rows of every global batch, augments them with the global batch's draws,
   and runs the data-parallel steps (``group``: SyncBN, the global loss, one
-  gradient all-reduce, the global confusion; ``parallel/shard_step.py``).
+  gradient all-reduce, the global confusion).
   Only rank 0 writes the experiment directory, checkpoints and TensorBoard.
+- Spatial partitioning (``tpu.spatial_shards`` = sp > 1): the ranks form a
+  data x space mesh. A rank loads and augments its batch shard's rows at
+  full height, as above (the sp ranks of one data row repeat the same
+  draws on the same tiles, where GSPMD would gather), then keeps its block
+  of image rows (``mesh.local_height``; ``H % (16 * sp) == 0``). The model
+  exchanges edge rows around every 3x3 conv and 2x upsample over the space
+  group (``parallel/halo.py``), and the steps are ``make_train_step`` and
+  ``make_eval_step`` with every sum over all ranks.
 
 Batches are dicts of tensors in the loader's layout: ``image`` [B,H,W,C],
 ``target`` [B,H,W] int, ``valid`` [B] bool, optional aux rasters
@@ -70,6 +78,7 @@ from floodplanet_code_tpu_torch.models import (
     resolve_compute_dtype,
     resolve_conv_impl,
 )
+from floodplanet_code_tpu_torch.models.unet import set_space_group
 from floodplanet_code_tpu_torch.models.water_seg import AUX_FEATURE_KEYS
 from floodplanet_code_tpu_torch.ops.losses import (
     cross_entropy_ignore,
@@ -84,14 +93,18 @@ from floodplanet_code_tpu_torch.ops.metrics import (
 )
 from floodplanet_code_tpu_torch.parallel import collectives, launch, multihost
 from floodplanet_code_tpu_torch.parallel.mesh import (
-    batch_group,
+    all_group,
+    check_height,
     detect_n_pods,
     device_list,
+    local_height,
     local_rows,
     make_hybrid_mesh,
     make_mesh,
+    make_mesh_2d,
     n_batch_shards,
     replicate_state,
+    space_group,
 )
 from floodplanet_code_tpu_torch.train.checkpoint import MONITOR_KEY, CheckpointManager
 from floodplanet_code_tpu_torch.train.logging import NullWriter, log_image_panel, open_writer
@@ -356,22 +369,25 @@ def default_experiment_dir(cfg: Config) -> str:
     return pattern.format(date=datetime.date.today().isoformat(), name=name)
 
 
+def _spatial_shards(cfg) -> int:
+    return int(cfg.select("tpu.spatial_shards", 1) or 1)
+
+
 def _check_supported(cfg) -> None:
     """Raise for the settings the port does not run (before anything is
-    written): spatial partitioning, and the JAX package's own refusals of
-    ``tpu.spmd_impl`` (``train/fit.py:377-386`` there)."""
-    spatial = int(cfg.select("tpu.spatial_shards", 1) or 1)
-    if spatial > 1:
-        raise NotImplementedError(
-            f"tpu.spatial_shards={spatial}: spatial partitioning is not ported yet "
-            "(ROADMAP.md Queue 1, PR 9: halo exchanges for the 3x3 convs and the 2x "
-            "upsample)"
-        )
+    written): the JAX package's own refusals of ``tpu.spmd_impl``
+    (``train/fit.py:377-386`` there), and a crop height that spatial
+    partitioning cannot split evenly (``mesh.check_height``)."""
+    spatial = _spatial_shards(cfg)
     spmd_impl = cfg.select("tpu.spmd_impl", "gspmd") or "gspmd"
     if spmd_impl not in ("gspmd", "shard_map"):
         raise NotImplementedError(f'No implementation for tpu.spmd_impl "{spmd_impl}"')
+    if spmd_impl == "shard_map" and spatial > 1:
+        raise ValueError("tpu.spmd_impl=shard_map is the data-parallel variant; "
+                         "spatial_shards>1 needs gspmd")
     if spmd_impl == "shard_map" and (cfg.select("loss.name", "ce") or "ce") != "ce":
         raise NotImplementedError("tpu.spmd_impl=shard_map supports the default CE loss only")
+    check_height(int(cfg.crop_height), spatial)
     block = cfg.select("tpu.multihost") or {}
     keys = ("coordinator_address", "num_processes", "process_id")
     given = [k for k in keys if block.get(k) is not None]
@@ -382,17 +398,35 @@ def _check_supported(cfg) -> None:
         )
 
 
-def _fit_mesh():
-    """The data mesh of this fit's ranks (JAX ``train/fit.py:308-331``):
-    pod x data when the ranks span more than one node (``detect_n_pods``),
-    else one data axis. Unlike the JAX package, a pod axis is made also
-    with one rank per node: the mesh places no collective here, and the
-    pod-sharded scene cache needs the axis."""
+def _fit_mesh(spatial: int):
+    """The mesh of this fit's ranks (JAX ``train/fit.py:308-331``): pod x
+    data when the ranks span more than one node (``detect_n_pods``), else
+    one data axis; with ``spatial`` > 1 a ``space`` axis of that size
+    last, over world / spatial batch shards (raises unless it divides the
+    world). Unlike the JAX package, a pod axis is made also with one rank
+    per node: the mesh places no collective here, and the pod-sharded
+    scene cache needs the axis."""
     world = multihost.process_count()
+    if world % spatial:
+        raise ValueError(
+            f"tpu.spatial_shards={spatial} needs {spatial} devices (or a multiple of "
+            f"{spatial}), one per rank; {world} rank(s) are in this process group")
+    dp = world // spatial
     n_pods = detect_n_pods()
-    if n_pods > 1 and world % n_pods == 0:
-        return make_hybrid_mesh(n_pods, world // n_pods)
-    return make_mesh(world)
+    if n_pods > 1 and dp % n_pods == 0:
+        return make_hybrid_mesh(n_pods, dp // n_pods, sp=spatial)
+    return make_mesh_2d(dp, spatial) if spatial > 1 else make_mesh(world)
+
+
+def _local_block(batch: dict, rows: slice) -> dict:
+    """A batch with its image, target and aux rasters cut to ``rows`` of
+    their height (this rank's block); the per-example leaves (mean, std,
+    valid) stay whole."""
+    out = dict(batch)
+    for key in ("image", "target", *AUX_FEATURE_KEYS):
+        if key in out:
+            out[key] = out[key][:, rows]
+    return out
 
 
 def _epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -421,8 +455,8 @@ def fit_model(
     ``init_state_dict``: start from these weights (a state dict, e.g. the
     JAX package's initial parameters through ``state_dict_from_flax``)
     instead of ``init_weights(model, seed_num)``. Raises without a card
-    unless ``device="cpu"``, and for spatial partitioning
-    (``_check_supported``).
+    unless ``device="cpu"``, and for the settings ``_check_supported``
+    refuses.
 
     More than one device: ``devices`` (a list, e.g. ``["cuda:0",
     "cuda:1"]``, or twice ``"cpu"``) or ``tpu.n_devices`` > 1 (``cuda:0``
@@ -430,6 +464,9 @@ def fit_model(
     the CPU) spawns one rank per device (``parallel/launch.py``), each
     running this function, and returns rank 0's result. A process already
     in a group (``torchrun``, a ``tpu.multihost`` block) is one rank.
+    ``tpu.n_devices`` counts ranks: with ``tpu.spatial_shards`` = sp, the
+    world / sp batch shards of sp blocks of rows each (module docstring);
+    the crop height must be a multiple of 16 * sp.
 
     ``tpu.debug_nans``: after every train step the loss, gradients,
     parameters and running statistics, after every validation step the loss
@@ -458,8 +495,10 @@ def fit_model(
     if n_cfg is not None and int(n_cfg) != world:
         raise ValueError(f"tpu.n_devices={n_cfg} but {world} ranks are in this process group")
     coordinator = multihost.is_coordinator()
-    mesh = _fit_mesh()
-    group = batch_group(mesh)
+    mesh = _fit_mesh(_spatial_shards(cfg))
+    group = all_group(mesh)  # every sum of the steps: SyncBN, losses, gradients
+    space = space_group(mesh)  # spatial partitioning's row exchanges, or None
+    height_rows = local_height(mesh, int(cfg.crop_height))
     shard_mode = str(cfg.select("tpu.device_cache_shard", "auto") or "auto")
     if shard_mode == "pod" and "pod" not in mesh.axis_names:
         raise ValueError(
@@ -508,7 +547,7 @@ def fit_model(
     rows = local_rows(mesh, batch_size)
     seed = cfg.seed_num or 0
 
-    shard = multihost.process_shard()
+    shard = multihost.process_shard(mesh)
     train_loader = BatchLoader(train_dataset, batch_size=batch_size, shuffle=True,
                                n_workers=cfg.n_workers, drop_last=True, seed=cfg.seed_num,
                                process_shard=shard)
@@ -525,6 +564,7 @@ def fit_model(
         device=device,
         conv_impl=resolve_conv_impl(cfg),
         bn_group=group,
+        space_group=space,
         **(cfg.model.get("model_kwargs") or {}),
     )
     if init_state_dict is None:
@@ -572,21 +612,21 @@ def fit_model(
     )
     if not cfg.select("tpu.use_pallas", True):
         transform_params = dataclasses.replace(transform_params, rotate_impl="shear")
-    # The steps over this fit's mesh (on one rank they sum nothing). The
-    # module builds them from this one's, so it is imported here.
-    from floodplanet_code_tpu_torch.parallel import shard_step
-
-    train_step = shard_step.make_shard_train_step(
-        model,
-        mesh,
-        ignore_index,
-        loss_cfg=cfg.select("loss"),
-        ema_decay=ema_decay,
-        ema_warmup=bool(cfg.select("ema_warmup", True)),
-    )
+    # The steps over every rank of this fit's mesh (on one rank they sum
+    # nothing): the data-parallel steps, and under spatial partitioning
+    # the port's GSPMD step, the same code with the model's space group set.
+    train_step = make_train_step(model, ignore_index, TransformParams(False, 0, False, 0, False, 0),
+                                 loss_cfg=cfg.select("loss"), fuse_augmentation=False,
+                                 ema_decay=ema_decay,
+                                 ema_warmup=bool(cfg.select("ema_warmup", True)), group=group)
+    eval_step = make_eval_step(model, ignore_index, group)
     augment_step = make_augment_step(transform_params, ignore_index,
                                      mesh if world > 1 else None)
-    eval_step = shard_step.make_shard_eval_step(model, mesh, ignore_index)
+
+    def own_rows(batch: dict) -> dict:
+        """This rank's block of a batch's image rows (all of them without
+        spatial partitioning)."""
+        return batch if space is None else _local_block(batch, height_rows)
 
     # The HBM scene cache (data/device_cache.py): batches are gathered on
     # the card from index rows. The budget (per device) covers train +
@@ -643,12 +683,17 @@ def fit_model(
         return device_prefetch(iter(valid_loader), device, size=2)
 
     def logits_of(image):
-        """Eval forward on the current parameters (not the EMA), NHWC logits."""
+        """Eval forward on the current parameters (not the EMA), NHWC logits,
+        of whole images: the coordinator alone runs it, so the model
+        exchanges no rows for it (under spatial partitioning the image is
+        the coordinator's full-height batch, before its block is cut)."""
         model.eval()
+        set_space_group(model, None)
         try:
             with torch.inference_mode():
                 return model({"image": image.permute(0, 3, 1, 2)}).permute(0, 2, 3, 1)
         finally:
+            set_space_group(model, space)
             model.train()
 
     # The coordinator writes TensorBoard; the other ranks' writer drops all.
@@ -685,7 +730,7 @@ def fit_model(
         for batch in itertools.islice(train_batches(epoch), limit_train):
             if augment_step is not None:
                 batch = augment_step(generator, batch)
-            state, logs = train_step(state, batch)
+            state, logs = train_step(state, own_rows(batch))
             if debug_nans:
                 raise_on_nan(f"after train step {n_train_batches} of epoch {epoch}",
                              _train_step_tensors(model, logs["loss"]), group)
@@ -704,8 +749,8 @@ def fit_model(
                 for key, value in step_metrics.items():
                     writer.add_scalar(key, value.item(), global_step)
             if log_image_iter and global_step % log_image_iter == 0 and coordinator:
-                # The coordinator's rows; the panel's forward has no
-                # collective, so the other ranks skip it.
+                # The coordinator's rows, at full height; the panel's
+                # forward has no collective, so the other ranks skip it.
                 logits = logits_of(batch["image"])
                 log_image_panel(
                     writer,
@@ -737,7 +782,7 @@ def fit_model(
         val_confusion = torch.zeros((n_classes, n_classes), device=device)
         val_losses = []
         for k, batch in enumerate(itertools.islice(valid_batches(), limit_val)):
-            logs = eval_step(state, batch)
+            logs = eval_step(state, own_rows(batch))
             if debug_nans:
                 raise_on_nan(f"after validation step {k} of epoch {epoch}",
                              [("the loss", logs["loss"]), ("the logits", logs["logits"])],

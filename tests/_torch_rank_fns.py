@@ -185,7 +185,7 @@ def multihost_case(how: str, port: int, rank: int, world: int, result_path: str)
         raised = str(exc)
     result = {"joined": joined, "again": again, "index": multihost.process_index(),
               "count": multihost.process_count(), "coordinator": multihost.is_coordinator(),
-              "shard": list(multihost.process_shard()), "local": multihost.local_batch_size(
+              "shard": list(multihost.process_shard(make_mesh())), "local": multihost.local_batch_size(
                   2 * world), "sum": t.item(), "raised": raised}
     multihost.sync("done")
     dist.destroy_process_group()
@@ -201,14 +201,15 @@ def fail_on_rank_one(device) -> int:
     return 0
 
 
-def fit_rank(cfg, exp_dir: str, init_state_dict, device) -> dict:
-    """``fit_model`` on this rank, recording which side effects it took:
-    checkpoint writes, writers opened, configs saved."""
+def fit_rank(runs, init_state_dict, device) -> list:
+    """``fit_model`` on this rank for each (config, experiment directory)
+    of ``runs`` in turn, recording which side effects each took:
+    checkpoint writes, writers opened, configs saved, image panels."""
     from floodplanet_code_tpu_torch.train import checkpoint, fit
 
-    taken = []
-    write, open_writer, save_config = (checkpoint.CheckpointManager._write, fit.open_writer,
-                                       fit.save_config)
+    write, open_writer, save_config, log_image_panel = (
+        checkpoint.CheckpointManager._write, fit.open_writer, fit.save_config,
+        fit.log_image_panel)
 
     def writing(self, *args, **kwargs):
         taken.append("checkpoint")
@@ -222,7 +223,113 @@ def fit_rank(cfg, exp_dir: str, init_state_dict, device) -> dict:
         taken.append("config")
         return save_config(cfg_, path)
 
+    def panel(*args, **kwargs):
+        taken.append("panel")
+        return log_image_panel(*args, **kwargs)
+
     checkpoint.CheckpointManager._write = writing
-    fit.open_writer, fit.save_config = opening, saving
-    best = fit.fit_model(cfg, exp_dir, device=device, init_state_dict=init_state_dict)
-    return {"best": best, "taken": taken, "rank": multihost.process_index()}
+    fit.open_writer, fit.save_config, fit.log_image_panel = opening, saving, panel
+    out = []
+    for cfg, exp_dir in runs:
+        taken = []
+        best = fit.fit_model(cfg, exp_dir, device=device, init_state_dict=init_state_dict)
+        out.append({"best": best, "taken": taken, "rank": multihost.process_index()})
+    return out
+
+
+def spatial_case(data: dict, device) -> dict:
+    """Spatial partitioning on a 2 x 2 data x space mesh: this rank's block
+    (its batch shard's rows, its block of image rows) through the row
+    exchange, the sharded upsample and DoubleConv, the spatial train and
+    eval steps, and ``replicate_state``."""
+    from floodplanet_code_tpu_torch.data.augment import TransformParams
+    from floodplanet_code_tpu_torch.models.unet import (
+        DoubleConv,
+        _upsample2x,
+        set_bn_group,
+        set_space_group,
+    )
+    from floodplanet_code_tpu_torch.parallel.halo import exchange_rows
+    from floodplanet_code_tpu_torch.parallel.mesh import (
+        all_group,
+        local_height,
+        make_mesh_2d,
+        replicate_state,
+        space_group,
+    )
+    from floodplanet_code_tpu_torch.train.fit import make_eval_step, make_train_step
+    from floodplanet_code_tpu_torch.train.state import init_weights
+
+    mesh = make_mesh_2d(2, 2)
+    every, space = all_group(mesh), space_group(mesh)
+    rank, s = dist.get_rank(), mesh.coords["space"]
+    out = {"coords": mesh.coords, "space_ranks": dist.get_process_group_ranks(space)}
+
+    # (a) the exchange: <cat(top, x, bottom), weight> of this rank's block.
+    for k in (1, 2):
+        x_all = data["exchange_x"]  # [B, C, H, W]
+        per = x_all.shape[2] // 2
+        rows = local_rows(mesh, x_all.shape[0])
+        x = torch.from_numpy(x_all[rows, :, s * per:(s + 1) * per]).to(device).requires_grad_()
+        top, bottom = exchange_rows(x.contiguous(memory_format=torch.channels_last), space, k)
+        ext = torch.cat([t for t in (top, x, bottom) if t is not None], dim=2)
+        weight = torch.from_numpy(data["exchange_w"][rank][..., :ext.shape[2], :]).to(device)
+        (ext * weight).sum().backward()
+        out[f"exchange{k}"] = {"ext": _np(ext), "dx": _np(x.grad), "top": top is not None}
+
+    # (b) the sharded modules against the unsharded ones: forward and the
+    # gradient of <out, g> (this rank's share).
+    x_all = data["module_x"]
+    rows, hs = local_rows(mesh, x_all.shape[0]), local_height(mesh, x_all.shape[2])
+    for ac in (False, True):
+        x = torch.from_numpy(x_all[rows, :, hs]).to(device).requires_grad_()
+        up = _upsample2x(x.contiguous(memory_format=torch.channels_last), ac, space)
+        g = data["upsample_g"][rows, :, 2 * hs.start:2 * hs.stop]
+        (up * torch.from_numpy(g).to(device)).sum().backward()
+        out[f"upsample_{ac}"] = {"out": _np(up), "dx": _np(x.grad)}
+        x = torch.from_numpy(x_all[rows, :, hs]).to(device, torch.bfloat16)
+        up = _upsample2x(x.contiguous(memory_format=torch.channels_last), ac, space)
+        out[f"upsample_bf16_{ac}"] = {"out": _np(up.float())}
+    for impl, fused_bn in data["double_convs"]:
+        torch.manual_seed(0)
+        module = DoubleConv(x_all.shape[1], data["module_g"].shape[1], conv_impl=impl,
+                            fused_bn=fused_bn).to(device, memory_format=torch.channels_last).train()
+        set_space_group(set_bn_group(module, every), space)
+        x = torch.from_numpy(x_all[rows, :, hs]).to(device).requires_grad_()
+        y = module(x.contiguous(memory_format=torch.channels_last))
+        (y * torch.from_numpy(data["module_g"][rows, :, hs]).to(device)).sum().backward()
+        out[f"double_conv_{impl}_{fused_bn}"] = {
+            "out": _np(y), "dx": _np(x.grad),
+            "grads": {n: _np(p.grad) for n, p in module.named_parameters()}}
+
+    # (c), (d) one spatial train step (SGD at lr 1, whose first update is
+    # the gradient) and the eval step with a padded row, from JAX's start.
+    image, target = data["image"], data["target"]
+    rows, hs = local_rows(mesh, image.shape[0]), local_height(mesh, image.shape[1])
+    batch = {"image": torch.from_numpy(image[rows, hs]).to(device),
+             "target": torch.from_numpy(target[rows, hs]).to(device)}
+    valid = torch.from_numpy(data["valid"][rows]).to(device)
+    no_aug = TransformParams(False, 0, False, 0, False, 0)
+    for name, kwargs in data["steps"].items():
+        model = build_model("ef_model", {"ms_image": image.shape[-1]}, 3, base_feat_channels=8,
+                            device=device, bn_group=every, space_group=space, **kwargs)
+        state = create_train_state(model, {k: torch.from_numpy(v) for k, v in
+                                           data["start"].items()}, 1.0, optimizer_name="sgd")
+        logs = make_eval_step(model, 2, every)(state, dict(batch, valid=valid))
+        res = {"eval_loss": logs["loss"].item(), "eval_confusion": _np(logs["confusion"])}
+        step = make_train_step(model, 2, no_aug, fuse_augmentation=False, group=every)
+        state, logs = step(state, batch)
+        res.update(loss=logs["loss"].item(), confusion=_np(logs["confusion"]),
+                   grads={n: _np(p.grad) for n, p in model.named_parameters()},
+                   params={n: _np(p) for n, p in model.named_parameters()},
+                   buffers={n: _np(b) for n, b in model.named_buffers()})
+        out[f"step_{name}"] = res
+
+    # (e) every rank starts from its own weights; replicate_state gives
+    # each rank 0's, the EMA copy included.
+    model = init_weights(build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=8,
+                                     device=device), seed=rank)
+    state = replicate_state(create_train_state(model, None, 1e-3, ema=True), mesh)
+    out["replicated"] = np.concatenate(
+        [_np(t).ravel() for t in [*model.state_dict().values(), *state.ema_params.values()]])
+    return out

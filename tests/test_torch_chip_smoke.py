@@ -27,7 +27,10 @@ count no kernel launch:
   poisoned, the data tools and the example transformer;
 - more than one device: two CPU ranks (gloo) against one rank, one rank
   through the launcher, the 2-rank fits with the replicated and the
-  pod-sharded cache and the resume, infer over two replicas.
+  pod-sharded cache and the resume, infer over two replicas;
+- spatial partitioning, in the same two ranks: the steps on a 1 x 2 data x
+  space mesh against one rank, the halo-extended fused conv (its plain
+  version here) and the spatial fit.
 """
 
 import torch
@@ -151,9 +154,10 @@ def test_data_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
 
 
 def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
-    """Phase 13 with two CPU ranks (gloo): the data-parallel steps against
-    one rank, one rank through the launcher, the 2-rank fits with both
-    caches and the resume, the one-rank fit, infer over two replicas."""
+    """Phases 13 and 14 with two CPU ranks (gloo): the data-parallel steps
+    against one rank, one rank through the launcher, the 2-rank fits with
+    both caches and the resume, the one-rank fit, infer over two replicas;
+    the spatial steps against one rank and the spatial fit."""
     monkeypatch.setattr(chip_smoke, "TILE", 64)
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
     monkeypatch.setattr(chip_smoke, "BASE", 8)
@@ -170,4 +174,11 @@ def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert len(result["fit"]["losses"]) == 4
     assert result["infer"]["argmax_agree"] >= 0.999
     assert result["two_cards"] is None
+    spatial = result["spatial"]
+    assert spatial["launches"] == {"conv": 0, "shear": 0}
+    # 22 exchanges forward (two per DoubleConv, one per upsample), one
+    # fewer backward: the image's needs no gradient.
+    assert [c["halo"]["count"] for c in spatial["collectives_per_rank"]] == [43, 43]
+    assert set(spatial["halo_parity"].values()) == {0.0}  # one code path on the CPU
+    assert len(spatial["fit"]["losses"]) == 2
     assert not (tmp_path / "work").exists()

@@ -168,14 +168,17 @@ def test_finished_experiment_returns_at_once(synthetic_csdap_root, tmp_path, cap
 
 # Each multi-device setting in a context where it cannot run, and what it
 # raises there, before anything is written: more cards than are present;
-# spatial partitioning (not ported, ROADMAP.md Queue 1, PR 9); the JAX
-# package's own refusal of shard_map with another loss than CE; a
+# spatial partitioning on one rank; the JAX package's own refusals of
+# shard_map with another loss than CE and with spatial partitioning; a
+# crop height that spatial partitioning cannot split evenly; a
 # tpu.multihost block with one of its three keys; the pod-sharded scene
 # cache without a pod axis (one process).
 _REFUSED = {
     "tpu.n_devices=2": ([], ValueError, "2 CUDA devices requested, 1 present"),
-    "tpu.spatial_shards=2": ([], NotImplementedError, "PR 9"),
+    "tpu.spatial_shards=2": ([], ValueError, "needs 2 devices"),
     "tpu.spmd_impl=shard_map": (["loss.name=ce_dice"], NotImplementedError, "CE loss only"),
+    "tpu.spmd_impl=shard_map tpu.spatial_shards=2": ([], ValueError, "needs gspmd"),
+    "tpu.spatial_shards=4": ([], ValueError, r"height % \(16 \* spatial_shards\) == 0"),
     "tpu.multihost.num_processes=2": ([], ValueError, "needs all three"),
     "tpu.device_cache_shard=pod": ([], ValueError, "needs a pod axis"),
 }
@@ -184,7 +187,7 @@ _REFUSED = {
 @pytest.mark.parametrize("override", list(_REFUSED))
 def test_multi_device_configs_raise(synthetic_csdap_root, tmp_path, override, monkeypatch):
     extra, error, match = _REFUSED[override]
-    cfg = compose(overrides=_overrides(synthetic_csdap_root, override, *extra))
+    cfg = compose(overrides=_overrides(synthetic_csdap_root, *override.split(), *extra))
     device = "cpu"
     if override == "tpu.n_devices=2":  # a machine with one card
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

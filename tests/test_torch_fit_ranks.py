@@ -10,6 +10,10 @@ parameters. Per epoch the losses agree to 1e-4 relative and the validation
 Jaccard/F1 to 1e-3 absolute, the tolerances of the one-device fit test.
 Every side effect is rank 0's alone (the config snapshot, the TensorBoard
 writer, the checkpoint writes), and a resumed fit restores on both ranks.
+The same ranks then fit with ``tpu.spatial_shards=2`` (one batch shard,
+each rank 16 of the 32 rows; an image panel at every step, on rank 0's
+full-height rows): its losses and metrics are held to the same JAX fit,
+the function of one device, by the same bounds.
 """
 
 import glob
@@ -70,24 +74,30 @@ def test_two_rank_fit_matches_jax(synthetic_csdap_root, tmp_path, capfd):
         lambda v: np.array(v, np.float32),
         {"params": jstate.params, "batch_stats": jstate.batch_stats}))
 
-    exp = str(tmp_path / "port")
-    cfg = compose(overrides=_overrides(synthetic_csdap_root))
-    ranks = launch.spawn(fns.fit_rank, (cfg, exp, start), devices=["cpu", "cpu"],
+    exp, exp_sp = str(tmp_path / "port"), str(tmp_path / "port_spatial")
+    runs = [(compose(overrides=_overrides(synthetic_csdap_root)), exp),
+            (compose(overrides=_overrides(synthetic_csdap_root, "tpu.spatial_shards=2",
+                                          "log_image_iter=1")), exp_sp)]
+    ranks = launch.spawn(fns.fit_rank, (runs, start), devices=["cpu", "cpu"],
                          timeout_s=120, join_timeout_s=DEADLINE)
-    want, got = _epochs(str(tmp_path / "jax")), _epochs(exp)
-    assert sorted(got) == sorted(want) == [0]
-    for key in ("train_loss", "valid_loss"):
-        np.testing.assert_allclose(got[0][key], want[0][key], rtol=1e-4)
-    for key in ("val_MulticlassJaccardIndex", "val_MulticlassF1Score", "val_water_IoU"):
-        assert abs(got[0][key] - want[0][key]) <= 1e-3, key
-    # Rank 0 alone writes; both return the same best path.
-    assert ranks[0]["best"] == ranks[1]["best"] != ""
-    assert sorted(set(ranks[0]["taken"])) == ["checkpoint", "config", "writer"]
-    assert ranks[1]["taken"] == []
-    assert os.listdir(exp) and sorted(os.listdir(os.path.join(exp, "checkpoints"))) == [
-        "index.json", os.path.basename(ranks[0]["best"])]
-    assert os.path.isdir(os.path.join(exp, "tensorboard_logs"))
-    assert os.path.isfile(os.path.join(exp, "timing.json"))
+    want = _epochs(str(tmp_path / "jax"))
+    for k, path in enumerate((exp, exp_sp)):
+        got, fits = _epochs(path), [r[k] for r in ranks]
+        assert sorted(got) == sorted(want) == [0]
+        for key in ("train_loss", "valid_loss"):
+            np.testing.assert_allclose(got[0][key], want[0][key], rtol=1e-4)
+        for key in ("val_MulticlassJaccardIndex", "val_MulticlassF1Score", "val_water_IoU"):
+            assert abs(got[0][key] - want[0][key]) <= 1e-3, key
+        # Rank 0 alone writes; both return the same best path.
+        assert fits[0]["best"] == fits[1]["best"] != ""
+        assert sorted(set(fits[0]["taken"])) == sorted(["checkpoint", "config", "writer"]
+                                                       + (["panel"] if k else []))
+        assert fits[0]["taken"].count("panel") == (3 if k else 0)  # one per step
+        assert fits[1]["taken"] == []
+        assert os.listdir(path) and sorted(os.listdir(os.path.join(path, "checkpoints"))) == [
+            "index.json", os.path.basename(fits[0]["best"])]
+        assert os.path.isdir(os.path.join(path, "tensorboard_logs"))
+        assert os.path.isfile(os.path.join(path, "timing.json"))
 
     # Resumed to a second epoch through fit_model's own launch: both ranks
     # restore the checkpoint and run epoch 1 alone.

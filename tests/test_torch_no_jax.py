@@ -80,6 +80,7 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.parallel.collectives",
         "floodplanet_code_tpu_torch.parallel.launch",
         "floodplanet_code_tpu_torch.parallel.shard_step",
+        "floodplanet_code_tpu_torch.parallel.halo",
     ):
         assert expected in names
 

@@ -62,7 +62,6 @@ from floodplanet_code_tpu.train.state import create_train_state as jax_state
 from floodplanet_code_tpu_torch.parallel import launch
 from floodplanet_code_tpu_torch.parallel.mesh import (
     Mesh,
-    check_data_mesh,
     local_rows,
     make_mesh,
     make_mesh_2d,
@@ -154,7 +153,7 @@ def test_local_rows_match_jax_sharding(layout):
 
 def test_make_mesh_refuses_more_devices_than_ranks():
     assert make_mesh().shape == {"data": 1}
-    assert make_mesh(1).groups == {"data": None, "batch": None}
+    assert make_mesh(1).groups == {"data": None, "batch": None, "all": None}
     with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh(2)
     with pytest.raises(ValueError, match="needs 4 devices"):
@@ -162,12 +161,11 @@ def test_make_mesh_refuses_more_devices_than_ranks():
 
 
 def test_spatial_mesh_rejected():
-    """The JAX test_spatial_mesh_rejected: a space axis above 1 is refused
-    (spatial partitioning is PR 9)."""
-    with pytest.raises(NotImplementedError, match="PR 9"):
-        check_data_mesh(Mesh(("data", "space"), (4, 2)))
-    with pytest.raises(NotImplementedError, match="PR 9"):
-        make_shard_train_step(None, Mesh(("data", "space"), (1, 2)), 0)
+    """The JAX test_spatial_mesh_rejected: the data-parallel step refuses a
+    mesh with a space axis (spatial partitioning runs the GSPMD step)."""
+    for sizes in ((4, 2), (1, 2)):
+        with pytest.raises(ValueError, match="spatial partitioning stays GSPMD-only"):
+            make_shard_train_step(None, Mesh(("data", "space"), sizes), 0)
 
 
 def test_backend_follows_the_devices():
@@ -393,6 +391,6 @@ def test_one_process_is_a_world_of_one():
 
     assert multihost.initialize_from_env_or_config(compose(overrides=[]), "cpu") is False
     assert (multihost.process_index(), multihost.process_count()) == (0, 1)
-    assert multihost.is_coordinator() and multihost.process_shard() is None
+    assert multihost.is_coordinator() and multihost.process_shard(make_mesh()) is None
     assert multihost.local_batch_size(5) == 5
     multihost.sync("noop")
