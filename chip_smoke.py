@@ -124,22 +124,32 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    over two cards too; else one line says they were not run;
 14. spatial partitioning (``tpu.spatial_shards=2``), in phase 13's two
    ranks: a 1 x 2 data x space mesh, each rank the whole global batch's
-   MD_BATCH rows and half of the TILE image rows; the same step checks
-   against the one-rank steps (f32 gradients within SP_GRAD_TOL of their
-   norm), the augment step on the full-height rows bit for bit, the fused
-   conv on halo-extended rows (the neighbour's edge row joined) against its
-   plain version at the inc and bottleneck levels, exact launches per
-   rank, the bf16 step's time and peak memory per rank against one rank's
-   and every collective of one step timed alone (the halo exchanges, the
-   BatchNorm sums, the rest); a 2-rank spatial ``fit_model`` of MD_EPOCHS
-   epochs through the replicated cache with a full-height image panel
-   every SP_LOG_IMAGE_ITER steps, rank 0 alone writing, finite per-epoch
-   losses, reported beside the one-rank and the 2-rank data-parallel fits'
-   (not held to them: the card's bf16 fits differ between runs by as much;
-   the f32 step checks carry its correctness on the card, and
-   tests/test_torch_fit_ranks.py holds the spatial fit to the JAX fit on
-   the CPU). Its numbers are the ``spatial`` entry of the multi-device
-   JSON.
+   MD_BATCH rows and its block of the image rows, at the even TILE^2
+   (blocks of equal height at every level) and at the reference's default
+   SP_TILE^2 crop (300: blocks 150/150, 75/75, 38/37, 19/18, 10/8, two
+   pool windows split between the ranks, two padded levels; SyncBN
+   weighting each rank by its pixels): at each, the same step checks
+   against the one-rank steps on the same global batch (f32 gradients
+   within SP_GRAD_TOL of their norm; at SP_TILE also an f64 step each
+   through the fused pair's own graph, the spatial one within SP_F64_TOL of
+   one rank's, and the f32 rule met there or by the f64 witness at
+   SP_WITNESS_RATIO: see sp_step_checks), the augment step (shear
+   kernel) on the full-height rows bit for bit, the fused conv on
+   halo-extended rows (the neighbours' edge rows joined) against its plain
+   version (TILE: the inc and bottleneck levels; SP_TILE: the uneven levels
+   2-4), exact launches per rank, the bf16 step's time and peak memory per
+   rank against one rank's and every collective of one step timed alone
+   (the halo exchanges, the BatchNorm sums, the rest); at SP_TILE the eval
+   pack cache across block heights (one pack serves a block and the whole
+   image, equal to packing per call); a 2-rank spatial ``fit_model`` at
+   SP_TILE^2 of MD_EPOCHS epochs through the replicated cache with a
+   full-height image panel every SP_LOG_IMAGE_ITER steps, rank 0 alone
+   writing, finite per-epoch losses, reported beside a one-rank fit at the
+   same crop (not held to it: the card's bf16 fits differ between runs by
+   as much; the f32 step checks carry its correctness on the card, and
+   tests/test_torch_fit_ranks.py holds a spatial fit with a split pool
+   window to the JAX fit on the CPU). Its numbers are the ``spatial``
+   entry of the multi-device JSON (``crop``: the SP_TILE steps).
 
 The last ten lines of standard output are the serving slice's numbers as
 JSON, the training phase's numbers as JSON, the fit phase's numbers as
@@ -357,7 +367,27 @@ MD_LIMIT_VAL = 2
 # one-rank step's; its fit as phase 13's with an image panel every
 # SP_LOG_IMAGE_ITER steps.
 SP_GRAD_TOL = 2e-3
+# The spatial f64 step's gradients against the one-rank f64 step's, of
+# their largest element and of their norm: f64 rounding, and the f32 logits
+# the loss reads (1e-7 on the CPU).
+SP_F64_TOL = 1e-5
+# The f64 witness at SP_TILE (sp_step_checks): the spatial f32 gradients'
+# worst distance to the one-rank f64 step's, in the max and the norm form,
+# at most SP_WITNESS_RATIO times one rank's own f32 gradients'. Both
+# distances come from the few ReLUs whose input lies within rounding of
+# zero, which each f32 step decides its own way (scripts/relu_flips.py), so
+# the ratio moves with their count: on the card at 300^2 it reads 1.03 in
+# both forms, in the CPU rehearsal at 50^2 (one such ReLU) 1.55 and 1.05
+# (PERF.md).
+SP_WITNESS_RATIO = 2.0
 SP_LOG_IMAGE_ITER = 4
+# The uneven case: the reference's default crop (config.yaml: 300^2), whose
+# levels 300, 150, 75, 37, 18 split over 2 ranks into 150/150, 75/75, 38/37,
+# 19/18, 10/8 rows (parallel/rows.py): two pool windows across the ranks
+# and two padded levels. Its steps, the fused conv on its uneven blocks
+# (levels 2-4) and the spatial fit run at this crop.
+SP_TILE = 300
+SP_PARITY_LEVELS = {"even": (0, 4), "uneven": (2, 3, 4)}
 AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0, 1]
 
 
@@ -2723,9 +2753,9 @@ def _md_tf32_off() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _md_model(spec: dict, dtype, device, group=None, space=None):
+def _md_model(spec: dict, dtype, device, group=None, space=None, conv_impl="pallas_fused"):
     model = build_model("ef_model", {"ms_image": 4}, 3, base_feat_channels=spec["base"],
-                        dtype=dtype, device=device, conv_impl="pallas_fused", bn_group=group,
+                        dtype=dtype, device=device, conv_impl=conv_impl, bn_group=group,
                         space_group=space)
     sd = state_dict_from_flax(seeded_flax_variables(4, 3, spec["base"], seed=1))
     return model, create_train_state(model, sd, 1e-4)
@@ -2733,6 +2763,23 @@ def _md_model(spec: dict, dtype, device, group=None, space=None):
 
 def _md_tensors(batch: dict, rows, device) -> dict:
     return {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _plain_fused_op():
+    """The model's fused op runs its plain version (autograd through the
+    unfused chain, any dtype) while the context is open."""
+    from floodplanet_code_tpu_torch.models import unet
+
+    def plain(y, a, b, w, packed=None):
+        out = conv_fused.relu_affine_conv3x3_plain(y, a, b, w)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    kernel, unet.relu_affine_conv3x3 = unet.relu_affine_conv3x3, plain
+    try:
+        yield
+    finally:
+        unet.relu_affine_conv3x3 = kernel
 
 
 def md_steps(spec: dict, device, mesh=None) -> dict:
@@ -2800,6 +2847,21 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
     out["stats"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
     del model, state, step, eval_step
+    if spec.get("f64"):
+        # One f64 step from the same weights through the f32 steps' own
+        # graph (f64 activations and BatchNorm, the loss on f32 logits):
+        # the pallas_fused DoubleConvs, their fused pair's operands folded
+        # from the synced statistics and applied to the joined halo rows of
+        # y, with the op's plain version in place of the kernel, which runs
+        # f32 and bf16 alone (for this step only). Where two f32 steps
+        # decide a few ReLUs differently, the truth that both are held to,
+        # and the partitioning's own check, the fused pair's included.
+        model, state = _md_model(spec, torch.float64, device, group, space)
+        with _plain_fused_op():
+            make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                            fuse_augmentation=False, group=group)(state, block)
+        out["f64_grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        del model, state
     model, state = _md_model(spec, torch.bfloat16, device, group, space)
     step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
                            fuse_augmentation=False, group=group)
@@ -2892,53 +2954,121 @@ def timed_collectives(device):
             module.all_reduce = fn
 
 
-def sp_halo_parity(spec: dict, mesh, device) -> dict:
+# A Down level's DoubleConv: its fused conv maps LEVEL_WIDTHS[l] * base
+# channels to as many (the inc at level 0, the bottleneck at level 4).
+LEVEL_WIDTHS = (1, 2, 4, 8, 8)
+LEVEL_NAMES = {0: "inc", 4: "bottleneck"}
+
+
+def sp_halo_parity(spec: dict, mesh, device, levels) -> dict:
     """Phase 14's kernel check: the fused conv on a halo-extended y, as
     ``DoubleConv`` runs it under spatial partitioning (this rank's block of
-    rows of a seeded y, the neighbour's edge row joined by the exchange),
-    against its plain version on the same y_ext, and the block's own output
-    rows against the plain version on the whole y; at the inc and the
-    bottleneck level, f32 and bf16. Returns the worst error of each over
-    max|ref| (phase 3's TOL)."""
+    rows of a seeded y at each of ``levels`` of ``spec``'s tile, the
+    neighbours' edge rows joined by the exchange), against its plain
+    version on the same y_ext, and the block's own output rows against the
+    plain version on the whole y; f32 and bf16. Returns the worst error of
+    each over max|ref| (phase 3's TOL) and each level's block heights."""
     from floodplanet_code_tpu_torch.parallel import halo
     from floodplanet_code_tpu_torch.parallel.mesh import space_group
+    from floodplanet_code_tpu_torch.parallel.rows import row_layout
 
     space = space_group(mesh)
-    tile, base = spec["tile"], spec["base"]
-    out = {}
-    for level, (hw, c1, c2) in (("inc", (tile, base, base)),
-                                ("bottleneck", (tile // 16, 8 * base, 8 * base))):
-        per = hw // mesh.shape["space"]
-        rows = slice(mesh.coords["space"] * per, (mesh.coords["space"] + 1) * per)
+    tile, base, s = spec["tile"], spec["base"], mesh.coords["space"]
+    layout = row_layout(tile, mesh.shape["space"])
+    out = {"blocks": {}}
+    for level in levels:
+        name = LEVEL_NAMES.get(level, f"level{level}")
+        h, width, c1 = layout.heights[level], tile >> level, LEVEL_WIDTHS[level] * base
+        c2 = c1
+        rows = layout.block(level, s)
+        out["blocks"][name] = [b - a for a, b in layout.blocks[level]]
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device=device).manual_seed(5)  # one y on every rank
-            y = torch.randn(2, c1, hw, hw, generator=gen, device=device).to(dtype)
+            y = torch.randn(2, c1, h, width, generator=gen, device=device).to(dtype)
             y = y.contiguous(memory_format=torch.channels_last)
             a = torch.rand(c1, generator=gen, device=device) + 0.5
             b = torch.randn(c1, generator=gen, device=device) * 0.5
             w = torch.randn(c2, c1, 3, 3, generator=gen, device=device) / math.sqrt(9 * c1)
-            top, bottom = halo.exchange_rows(y[:, :, rows], space)
-            y_ext = torch.cat([t for t in (top, y[:, :, rows], bottom) if t is not None], dim=2)
-            y_ext = y_ext.contiguous(memory_format=torch.channels_last)
+            y_ext = halo.join_rows(y[:, :, rows], space)
             got = conv_fused.relu_affine_conv3x3(y_ext, a, b, w)
             ref = conv_fused.relu_affine_conv3x3_plain(y_ext, a, b, w)
             whole = conv_fused.relu_affine_conv3x3_plain(y, a, b, w)[:, :, rows]
-            own = got[:, :, int(top is not None):got.shape[2] - int(bottom is not None)]
+            joined_top = int(s > 0)
+            own = got[:, :, joined_top:joined_top + rows.stop - rows.start]
             scale = ref.abs().max().item()
             err = max((got - ref).abs().max().item(), (own - whole).abs().max().item()) / scale
             if not err <= TOL[dtype]:
-                raise AssertionError(f"fused conv on halo-extended y, {level} {dtype}: error "
+                raise AssertionError(f"fused conv on halo-extended y, {name} {dtype}: error "
                                      f"{err:.2e} of max|ref|, tolerance {TOL[dtype]}")
-            out[f"{level}_{str(dtype).split('.')[-1]}"] = err
+            out[f"{name}_{str(dtype).split('.')[-1]}"] = err
     return out
 
 
-def md_rank(spec: dict, fits: dict, device) -> dict:
+def sp_pack_reuse(spec: dict, mesh, device) -> dict:
+    """The eval pack cache (``DoubleConv._pack_key``) across block heights:
+    one seeded DoubleConv of level 2 of ``spec``'s tile (bf16,
+    pallas_fused), in eval mode under inference mode, runs this rank's
+    block with the space group set and then the whole image with it unset,
+    as the fit's eval step and the coordinator's image panel do. The key
+    holds no height (``pack`` reads the parameters alone): on a card one
+    pack serves both, and each output equals the same forward packed per
+    call (inference mode off) bit for bit; the block's rows match the whole
+    image's within TOL. On the CPU nothing is packed."""
+    from floodplanet_code_tpu_torch.models.unet import DoubleConv, set_space_group
+    from floodplanet_code_tpu_torch.parallel.mesh import space_group
+    from floodplanet_code_tpu_torch.parallel.rows import row_layout
+
+    level, tile, base = 2, spec["tile"], spec["base"]
+    layout = row_layout(tile, mesh.shape["space"])
+    rows = layout.block(level, mesh.coords["space"])
+    c = LEVEL_WIDTHS[level] * base
+    torch.manual_seed(7)  # one module on every rank
+    module = DoubleConv(c // 2, c, conv_impl="pallas_fused")
+    with torch.no_grad():
+        for bn in (module.bn0, module.bn1):
+            bn.mean.uniform_(-0.5, 0.5)
+            bn.var.uniform_(0.5, 1.5)
+            bn.scale.uniform_(0.5, 1.5)
+            bn.bias.uniform_(-0.5, 0.5)
+    module = module.to(device, memory_format=torch.channels_last).eval()
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.randn(2, c // 2, layout.heights[level], tile >> level, generator=gen,
+                    device=device).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    space = space_group(mesh)
+
+    def both():
+        set_space_group(module, space)
+        block = module(x[:, :, rows].contiguous(memory_format=torch.channels_last))
+        key = module._fused[0]
+        set_space_group(module, None)
+        return block, module(x), key
+
+    with torch.inference_mode():
+        block, whole, key = both()
+        same_pack = key is not None and module._fused[0] == key
+    with torch.no_grad():
+        block_ref, whole_ref, _ = both()
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not same_pack:
+        raise AssertionError("the eval pack cache re-packed between block and full height")
+    if not (torch.equal(block, block_ref) and torch.equal(whole, whole_ref)):
+        raise AssertionError("a pack cached at one block height differs from packing per call")
+    err = ((block.float() - whole[:, :, rows].float()).abs().max()
+           / whole.float().abs().max()).item()
+    if not err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"pack reuse: block rows vs the whole image's {err:.2e} of max|ref|")
+    return {"one_pack": same_pack, "block_vs_whole": err,
+            "block_rows": rows.stop - rows.start}
+
+
+def md_rank(spec: dict, spec_sp: dict, fits: dict, device) -> dict:
     """All of phases 13 and 14's work on one of the two ranks that share
     the device, in one process start: the step checks on the 1-D data mesh
     (md_steps), the fit through the replicated cache with both ranks on one
-    node; then phase 14 on a 1 x 2 data x space mesh: the step checks, the
-    fused conv on halo-extended rows (sp_halo_parity) and a spatial fit;
+    node; then phase 14 on a 1 x 2 data x space mesh: the step checks and
+    the fused conv on halo-extended rows (sp_halo_parity) at ``spec``'s
+    even tile and at ``spec_sp``'s uneven crop, the pack cache across block
+    heights (sp_pack_reuse), and a spatial fit at that crop;
     then phase 13's resume through the pod-sharded cache with each rank a
     node of its own (LOCAL_WORLD_SIZE, which mesh.detect_n_pods reads, as
     ``launch.spawn(pods=2)`` sets it). Each part's seconds on this rank."""
@@ -2954,8 +3084,15 @@ def md_rank(spec: dict, fits: dict, device) -> dict:
     t0 = time.perf_counter()
     mesh = make_mesh_2d(1, 2)
     out["spatial_steps"] = md_steps(spec, device, mesh)
-    out["spatial_steps"]["halo_parity"] = sp_halo_parity(spec, mesh, device)
+    out["spatial_steps"]["halo_parity"] = sp_halo_parity(spec, mesh, device,
+                                                         SP_PARITY_LEVELS["even"])
     seconds["spatial_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spatial_crop_steps"] = md_steps(spec_sp, device, mesh)
+    out["spatial_crop_steps"]["halo_parity"] = sp_halo_parity(spec_sp, mesh, device,
+                                                              SP_PARITY_LEVELS["uneven"])
+    out["spatial_crop_steps"]["pack_reuse"] = sp_pack_reuse(spec_sp, mesh, device)
+    seconds["spatial_crop_steps"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["spatial"] = md_fit_rank(fits["spatial"], fits["exp_spatial"], None, device)
     seconds["fit_spatial"] = time.perf_counter() - t0
@@ -3092,52 +3229,90 @@ def md_fit_forwards(timing: dict, n_loader: int, n_valid: int, coordinator: bool
     return steps + len(epochs) * min(MD_LIMIT_VAL, n_valid) + (panels if coordinator else 0)
 
 
-def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: bool) -> dict:
+def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: bool,
+                   tile: int) -> dict:
     """Phase 14's step checks against the one-rank steps on the same global
-    batch: the f32 loss (1e-4), the first step's gradients within
-    SP_GRAD_TOL of their norm (GRAD_MAX_TOL of their largest element), its
-    running statistics and confusion, the parameters after MD_STEPS steps
-    (phase 8's rule), the eval step with padded rows, the bf16 losses
-    falling, the augment step bit for bit (each rank augments the whole
-    global batch: one data row), the fused conv on halo-extended rows, the
-    exact launches per rank; on a card the bf16 step's time, peak memory
-    and collectives against one rank's."""
-    out = {}
+    batch of ``tile``^2 crops: the f32 loss (1e-4), the first step's
+    gradients, its running statistics and confusion, the parameters after
+    MD_STEPS steps (phase 8's rule), the eval step with padded rows, the
+    bf16 losses falling, the augment step bit for bit (each rank augments
+    the whole global batch: one data row), the fused conv on halo-extended
+    rows, the exact launches per rank; on a card the bf16 step's time, peak
+    memory and collectives against one rank's.
+
+    The gradients: within SP_GRAD_TOL of their norm (GRAD_MAX_TOL of their
+    largest element) of one rank's. Where the steps carry an f64 step (the
+    uneven crop; the fused pair's graph with the op's plain version), the
+    spatial f64 step's gradients must also lie within SP_F64_TOL of the
+    one-rank f64 step's: the partitioning, the fused pair's halo rows of y,
+    count-weighted fold and da, db included, apart from f32 rounding. The
+    f32 rule may then be met instead by the witness: the spatial f32 step
+    no farther from the f64 gradients than SP_WITNESS_RATIO times one
+    rank's f32 step. On the 300^2 batch one rank's own f32 gradients lie
+    7.5e-3 of their norm from its f64 gradients (PERF.md): each f32 step
+    decides a few ReLUs at rounding distance from zero its own way, so two
+    of them cannot meet SP_GRAD_TOL there; where no ReLU flips the
+    witness's distances are rounding noise and SP_GRAD_TOL decides."""
+    out, failed = {}, []
+    witness = "f64_grads" in one
+    witness_ok = False
+    if witness:
+        g64 = {k: v.double() for k, v in one["f64_grads"].items()}
+
+        def worst(grads, ref):
+            rels = grad_rels({k: v.double() for k, v in grads.items()}, ref)
+            return tuple(max(v[i] for v in rels.values()) for i in (0, 1))
+
+        out["f64_witness"] = {"one_rank": worst(one["grads"], g64),
+                              "spatial": [worst(r["grads"], g64) for r in ranks]}
+        out["f64_spatial"] = [worst(r["f64_grads"], g64) for r in ranks]
+        witness_ok = all(w[i] <= SP_WITNESS_RATIO * out["f64_witness"]["one_rank"][i]
+                         for w in out["f64_witness"]["spatial"] for i in (0, 1))
+        if not all(v <= SP_F64_TOL for w in out["f64_spatial"] for v in w):
+            failed.append(f"spatial f64 gradients vs 1 rank's: {out['f64_spatial']}")
     for r in ranks:
         if not _rel(r["f32_losses"][0], one["f32_losses"][0]) <= 1e-4:
-            raise AssertionError(f"spatial f32 loss {r['f32_losses']} vs 1 rank {one['f32_losses']}")
+            failed.append(f"spatial f32 loss {r['f32_losses']} vs 1 rank {one['f32_losses']}")
         rels = grad_rels({k: v.float() for k, v in r["grads"].items()},
                          {k: v.float() for k, v in one["grads"].items()})
-        worst = {"rel_max": max(v[0] for v in rels.values()),
-                 "rel_norm": max(v[1] for v in rels.values())}
-        if not (worst["rel_norm"] <= SP_GRAD_TOL and worst["rel_max"] <= GRAD_MAX_TOL):
-            raise AssertionError(f"spatial f32 gradients vs 1 rank: {worst}")
-        out["f32_grads"] = worst
+        gap = {"rel_max": max(v[0] for v in rels.values()),
+               "rel_norm": max(v[1] for v in rels.values())}
+        out["f32_grads"] = gap
+        if not (gap["rel_norm"] <= SP_GRAD_TOL and gap["rel_max"] <= GRAD_MAX_TOL
+                or witness_ok):
+            failed.append(f"spatial f32 gradients vs 1 rank at {tile}^2: {gap}; distance "
+                          f"to the f64 step {out.get('f64_witness')}")
         for name in ("stats1", "params", "stats"):
-            out[f"f32_{name}"] = _md_rel_checks(f"spatial {name}", r[name], one[name])
+            try:
+                out[f"f32_{name}"] = _md_rel_checks(f"spatial {name}", r[name], one[name])
+            except AssertionError as exc:
+                failed.append(str(exc))
         if any(not torch.equal(r[k][n], ranks[0][k][n]) for k in ("params", "stats")
                for n in r[k]):
-            raise AssertionError("the space ranks' states differ after the spatial steps")
+            failed.append("the space ranks' states differ after the spatial steps")
         for name, got, want in (("train", r["f32_confusion"], one["f32_confusion"]),
                                 ("eval", r["eval"]["confusion"], one["eval"]["confusion"])):
-            moved = np.abs(got - want).sum() / 2
-            if not moved <= 1e-3 * want.sum():
-                raise AssertionError(f"spatial {name} confusion: {moved} pixels moved")
-            out[f"{name}_confusion_moved"] = float(moved)
+            out[f"{name}_confusion_moved"] = float(np.abs(got - want).sum() / 2)
+            if not out[f"{name}_confusion_moved"] <= 1e-3 * want.sum():
+                failed.append(f"spatial {name} confusion: {out[f'{name}_confusion_moved']} "
+                              "pixels moved")
         out["eval_loss_rel"] = _rel(r["eval"]["loss"], one["eval"]["loss"])
         if not out["eval_loss_rel"] <= 1e-4:
-            raise AssertionError(f"spatial eval loss rel {out['eval_loss_rel']:.2e}")
+            failed.append(f"spatial eval loss rel {out['eval_loss_rel']:.2e}")
         if not r["bf16_losses"][-1] < r["bf16_losses"][0]:
-            raise AssertionError(f"spatial bf16 losses did not fall: {r['bf16_losses']}")
+            failed.append(f"spatial bf16 losses did not fall: {r['bf16_losses']}")
         for key in ("image", "target"):
             if not torch.equal(r["augment"][key], one["augment"][key]):
-                raise AssertionError(f"spatial augment step: {key} differs from one rank's")
+                failed.append(f"spatial augment step: {key} differs from one rank's")
         if r["launches"] != expected:
-            raise AssertionError(f"spatial launches {r['launches']}, expected {expected}")
+            failed.append(f"spatial launches {r['launches']}, expected {expected}")
     out["f32_loss_rel"] = [max(_rel(r["f32_losses"][k], one["f32_losses"][k]) for r in ranks)
                            for k in range(MD_STEPS)]
     out["halo_parity"] = {k: max(r["halo_parity"][k] for r in ranks)
-                          for k in ranks[0]["halo_parity"]}
+                          for k in ranks[0]["halo_parity"] if k != "blocks"}
+    out["halo_parity_blocks"] = ranks[0]["halo_parity"]["blocks"]
+    if "pack_reuse" in ranks[0]:
+        out["pack_reuse"] = [r["pack_reuse"] for r in ranks]
     out["bf16_losses"] = ranks[0]["bf16_losses"]
     out["collectives_per_rank"] = [r["collectives"] for r in ranks]
     out["launches_per_rank"] = ranks[0]["launches"]
@@ -3150,19 +3325,28 @@ def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: b
                                "two_ranks": [r["bf16_step_ms"] for r in ranks]}
         out["bf16_step_memory_mib"] = {"one_rank": one["bf16_step_memory_mib"],
                                        "two_ranks": [r["bf16_step_memory_mib"] for r in ranks]}
-        log(f"  spatial bf16 step (1 x 2 data x space, {MD_BATCH} rows of {TILE // 2} image rows "
-            f"per rank): {[round(r['bf16_step_ms'], 2) for r in ranks]} ms per rank against "
+        log(f"  spatial bf16 step at {tile}^2 (1 x 2 data x space, {MD_BATCH} rows of "
+            f"{tile // 2} image rows per rank): {[round(r['bf16_step_ms'], 2) for r in ranks]} "
+            f"ms per rank against "
             f"{one['bf16_step_ms']:.2f} ms on one rank; peak memory "
             f"{[round(r['bf16_step_memory_mib']['peak'], 1) for r in ranks]} MiB per rank "
             f"against {one['bf16_step_memory_mib']['peak']:.1f} MiB (added by the step "
             f"{[round(r['bf16_step_memory_mib']['added'], 1) for r in ranks]} against "
             f"{one['bf16_step_memory_mib']['added']:.1f}) [{card}]")
-    log(f"  spatial vs 1 rank (f32): loss rel per step {[f'{v:.2e}' for v in out['f32_loss_rel']]}, "
+    log(f"  spatial vs 1 rank at {tile}^2 (f32): loss rel per step "
+        f"{[f'{v:.2e}' for v in out['f32_loss_rel']]}, "
         f"grads {out['f32_grads']}, params after {MD_STEPS} steps {out['f32_params']}, eval loss "
         f"rel {out['eval_loss_rel']:.2e}; halo exchanges per step {[h['count'] for h in halo]} "
         f"taking {[round(h['ms'], 2) for h in halo]} ms (timed alone, host clock); fused conv on "
-        f"halo-extended rows {out['halo_parity']}; launches per rank {out['launches_per_rank']} "
+        f"halo-extended rows {out['halo_parity']} (blocks {out['halo_parity_blocks']}); "
+        f"pack reuse {out.get('pack_reuse')}; launches per rank {out['launches_per_rank']} "
         f"[{card}]")
+    if witness:
+        log(f"  at {tile}^2 the gradients' worst (max, norm) distance to the one-rank f64 "
+            f"step: one rank's f32 {out['f64_witness']['one_rank']}, spatial f32 "
+            f"{out['f64_witness']['spatial']}, spatial f64 {out['f64_spatial']} [{card}]")
+    if failed:
+        raise AssertionError(f"spatial steps at {tile}^2: " + "; ".join(failed))
     return out
 
 
@@ -3202,15 +3386,15 @@ def sp_ext_overhead(card: str) -> dict:
     return dict(total, levels=rows)
 
 
-def sp_fit_checks(run: list, one_losses: list, dp_losses: list, n_loader: int,
-                  n_valid_batches: int, card: str, on_card: bool) -> dict:
-    """Phase 14's 2-rank spatial fit: rank 0 alone writes, both ranks saw
-    the same epochs, finite per-epoch losses, exact conv launches (the
-    coordinator's image panels at full height included), its steady
-    tiles/s. Its losses' largest relative gap to the one-rank fit's and to
-    the 2-rank data-parallel fit's is reported, not held to a bound: one
-    rank's own bf16 fit moves ~2% between runs on the card (PERF.md §7),
-    so a bound there would sit inside the noise."""
+def sp_fit_checks(run: list, one_losses: list, n_loader: int, n_valid_batches: int,
+                  card: str, on_card: bool) -> dict:
+    """Phase 14's 2-rank spatial fit at SP_TILE^2 crops: rank 0 alone
+    writes, both ranks saw the same epochs, finite per-epoch losses, exact
+    conv launches (the coordinator's image panels at full height included),
+    its steady tiles/s. Its losses' largest relative gap to the one-rank
+    fit's at the same crop is reported, not held to a bound: one rank's own
+    bf16 fit moves ~2% between runs on the card (PERF.md §7), so a bound
+    there would sit inside the noise."""
     if run[1]["writes"] != 0 or run[0]["writes"] == 0:
         raise AssertionError(f"spatial fit: checkpoint writes per rank {[r['writes'] for r in run]}")
     if run[0]["saves"] != run[1]["saves"] or run[0]["best"] != run[1]["best"]:
@@ -3220,21 +3404,20 @@ def sp_fit_checks(run: list, one_losses: list, dp_losses: list, n_loader: int,
         raise AssertionError(f"spatial fit ran epochs {[s['epoch'] for s in run[0]['saves']]}")
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError(f"non-finite spatial fit losses {losses}")
-    rel, rel_dp = (max(_rel(a, b) for pa, pb in zip(losses, ref) for a, b in zip(pa, pb))
-                   for ref in (one_losses, dp_losses))
+    rel = max(_rel(a, b) for pa, pb in zip(losses, one_losses) for a, b in zip(pa, pb))
     timing = run[0]["timing"]
     want = [9 * md_fit_forwards(timing, n_loader, n_valid_batches, r["rank"] == 0,
                                 SP_LOG_IMAGE_ITER) if on_card else 0 for r in run]
     got = [r["launches"] for r in run]
     if got != want:
         raise AssertionError(f"spatial fit: conv launches per rank {got}, expected {want}")
-    out = {"losses": losses, "loss_rel": rel, "loss_rel_data_parallel": rel_dp,
+    out = {"crop": SP_TILE, "losses": losses, "one_rank_losses": one_losses, "loss_rel": rel,
            "launches_per_rank": got,
            "steady_train_tiles_per_s": timing["steady_train_tiles_per_sec"],
            "val_iou": [s["metric"] for s in run[0]["saves"]]}
-    log(f"  spatial fit: losses {[[round(v, 4) for v in p] for p in losses]}, worst rel "
-        f"{rel:.2e} to one rank's, {rel_dp:.2e} to the data-parallel fit's (reported, not "
-        f"held); conv launches per rank {got}; steady train tiles/s "
+    log(f"  spatial fit at {SP_TILE}^2: losses {[[round(v, 4) for v in p] for p in losses]}, "
+        f"worst rel {rel:.2e} to one rank's at the same crop (reported, not held); conv "
+        f"launches per rank {got}; steady train tiles/s "
         f"{out['steady_train_tiles_per_s']} (2 ranks sharing the card) [{card}]")
     return out
 
@@ -3263,9 +3446,18 @@ def run_multi_device(card: str, device="cuda") -> dict:
     spec = {"base": BASE, "tile": TILE, "steps": MD_STEPS, "fixed_steps": MD_FIXED_STEPS,
             "seed": 3, "n_valid": MD_BATCH - MD_PAD,
             "batch": {k: batch[k] for k in ("image", "target")}}
+    # Phase 14's uneven crop: the same scenes cut at SP_TILE.
+    ds_sp = build_dataset("floodplanet", "train",
+                          generate_image_slice_object(SP_TILE, SP_TILE, stride=SP_TILE),
+                          sensor="PS", channels="ALL", root_dir=data_root, ignore_index=0,
+                          seed_num=0, train_split_pct=0.8)
+    batch = next(iter(BatchLoader(ds_sp, MD_BATCH, shuffle=True, n_workers=8)))
+    spec_sp = dict(spec, tile=SP_TILE, batch={k: batch[k] for k in ("image", "target")},
+                   f64=True)
     result = {}
     with Phase("multi-device: one rank"):
         one = md_steps(spec, device)
+        one_sp = md_steps(spec_sp, device)
         sync(device)
         if on_card:
             torch.cuda.empty_cache()
@@ -3286,6 +3478,12 @@ def run_multi_device(card: str, device="cuda") -> dict:
                                 sensor="PS", channels="ALL", root_dir=data_root,
                                 ignore_index=0, seed_num=0, train_split_pct=0.8))
     n_loader, n_valid_batches = len(ds) // TRAIN_BATCH, -(-n_valid // TRAIN_BATCH)
+    n_valid_sp = len(build_dataset("floodplanet", "valid",
+                                   generate_image_slice_object(SP_TILE, SP_TILE, stride=SP_TILE),
+                                   sensor="PS", channels="ALL", root_dir=data_root,
+                                   ignore_index=0, seed_num=0, train_split_pct=0.8))
+    n_loader_sp, n_valid_batches_sp = len(ds_sp) // TRAIN_BATCH, -(-n_valid_sp // TRAIN_BATCH)
+    sp_crop = [f"crop_height={SP_TILE}", f"crop_width={SP_TILE}", f"crop_stride={SP_TILE}"]
 
     def md_cfg(path, epochs, *extra):
         return compose(overrides=fit_overrides(data_root, path, epochs, *extra) + [
@@ -3297,20 +3495,22 @@ def run_multi_device(card: str, device="cuda") -> dict:
                 "pod_spec": {"tile": TILE, "batch": TRAIN_BATCH, "root": data_root},
                 "exp_spatial": exp_sp,
                 "spatial": md_cfg(exp_sp, MD_EPOCHS, "tpu.spatial_shards=2",
-                                  f"log_image_iter={SP_LOG_IMAGE_ITER}")}
+                                  f"log_image_iter={SP_LOG_IMAGE_ITER}", *sp_crop)}
     with Phase(f"multi-device: two ranks on one device: the steps, a {MD_EPOCHS}-epoch fit "
                f"(replicated cache); spatial partitioning (phase 14): the steps on a 1 x 2 "
-               f"data x space mesh and a {MD_EPOCHS}-epoch spatial fit; the data-parallel fit "
-               f"resumed to {2 * MD_EPOCHS} (pod-sharded cache, 2 pods)"):
+               f"data x space mesh at {TILE}^2 and {SP_TILE}^2 and a {MD_EPOCHS}-epoch "
+               f"spatial fit at {SP_TILE}^2; the data-parallel fit resumed to {2 * MD_EPOCHS} "
+               f"(pod-sharded cache, 2 pods)"):
         t0 = time.perf_counter()
-        out = launch.spawn(md_rank, (spec, fit_args), devices=[dev, dev], timeout_s=300,
-                           join_timeout_s=900)
+        out = launch.spawn(md_rank, (spec, spec_sp, fit_args), devices=[dev, dev],
+                           timeout_s=300, join_timeout_s=900)
         result["spawn_s"] = time.perf_counter() - t0
     result["rank_s"] = out[0]["seconds"]
     log(f"  rank 0: {({k: round(v, 2) for k, v in out[0]['seconds'].items()})} s of "
         f"{result['spawn_s']:.2f} s from spawn to join [{card}]")
     ranks = [r["steps"] for r in out]
     sp_ranks = [r["spatial_steps"] for r in out]
+    sp_crop_ranks = [r["spatial_crop_steps"] for r in out]
     fits = {k: [r[k] for r in out] for k in ("replicated", "pod")}
     sp_fit = [r["spatial"] for r in out]
     # The data-parallel step against the one-rank step on the same batch.
@@ -3365,15 +3565,24 @@ def run_multi_device(card: str, device="cuda") -> dict:
         f"{MD_STEPS} steps {result['f32_params']}, eval loss rel {eval_rel:.2e}; bf16 losses "
         f"{[round(v, 4) for v in result['bf16_losses']]}; augment bit-identical; launches "
         f"per rank {ranks[0]['launches']} [{card}]")
-    spatial = sp_step_checks(sp_ranks, one, expected, card, on_card)
+    spatial = sp_step_checks(sp_ranks, one, expected, card, on_card, TILE)
+    spatial["crop"] = sp_step_checks(sp_crop_ranks, one_sp, expected, card, on_card, SP_TILE)
+    crop_launches = spatial["crop"].pop("launches")
+    for kernel in ("conv", "shear"):
+        spatial["launches"][kernel] += crop_launches[kernel]
     if on_card:
         spatial["y_ext_overhead"] = sp_ext_overhead(card)
-    del ranks, one, sp_ranks
+    del ranks, one, sp_ranks, one_sp, sp_crop_ranks
 
     timing, timing_pod = fits["replicated"][0]["timing"], fits["pod"][0]["timing"]
-    with Phase(f"multi-device: the same {MD_EPOCHS} epochs on one rank"):
+    with Phase(f"multi-device: the same {MD_EPOCHS} epochs on one rank, at {TILE}^2 and "
+               f"{SP_TILE}^2"):
         with watch_checkpoints() as (saves_one, _):
             train_fit.fit_model(md_cfg(exp_one, MD_EPOCHS), exp_one, device=device)
+        exp_one_sp = os.path.join(WORK, "md_exp_one_sp")
+        with watch_checkpoints() as (saves_one_sp, _):
+            train_fit.fit_model(md_cfg(exp_one_sp, MD_EPOCHS, *sp_crop), exp_one_sp,
+                                device=device)
     # Side effects: rank 0's alone; every rank saw every epoch.
     if sorted(os.listdir(exp)) != ["checkpoints", "hydra", "tensorboard_logs", "timing.json"]:
         raise AssertionError(f"the 2-rank experiment holds {sorted(os.listdir(exp))}")
@@ -3405,11 +3614,12 @@ def run_multi_device(card: str, device="cuda") -> dict:
             raise AssertionError(f"{name} fit: conv launches per rank {got_l}, expected {want_l}")
         fit_launches[name] = got_l
     launches["conv"] += sum(sum(v) for v in fit_launches.values())
-    spatial["fit"] = sp_fit_checks(sp_fit, one_losses, losses[:MD_EPOCHS], n_loader,
-                                   n_valid_batches, card, on_card)
+    spatial["fit"] = sp_fit_checks(sp_fit, [s["losses"] for s in saves_one_sp], n_loader_sp,
+                                   n_valid_batches_sp, card, on_card)
     spatial["launches"]["conv"] += sum(spatial["fit"]["launches_per_rank"])
     spatial["seconds_per_rank"] = {k: out[0]["seconds"][k]
-                                   for k in ("spatial_steps", "fit_spatial")}
+                                   for k in ("spatial_steps", "spatial_crop_steps",
+                                             "fit_spatial")}
     result["spatial"] = spatial
     result["fit"] = {"losses": losses, "one_rank_losses": one_losses, "loss_rel": fit_rel,
                      "pod_batches_equal": pod_batches, "launches_per_rank": fit_launches,

@@ -16,6 +16,7 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 )
 from floodplanet_code_tpu_torch.inference.stitcher import (
     DeviceStitcher,
+    ImageStitcher,
     finalize_canvas,
     make_tile_valid_mask,
     stitch_batch,
@@ -26,6 +27,7 @@ __all__ = [
     "resolve_inference_batch_size",
     "sliding_window_predict",
     "DeviceStitcher",
+    "ImageStitcher",
     "finalize_canvas",
     "make_tile_valid_mask",
     "stitch_batch",

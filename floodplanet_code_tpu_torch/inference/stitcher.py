@@ -1,20 +1,123 @@
-"""Overlap-averaged scene stitching on the device (port of
+"""Overlap-averaged scene stitching (port of
 ``floodplanet_code_tpu/inference/stitcher.py``).
 
 The reference reassembles full scenes from overlapping tile predictions with
 ``ImageStitcher_v2`` (utils_image.py:364-571): per-scene accumulation canvas
 plus hit-count weight canvas, divided at the end (+1e-5) and NaN-scrubbed.
-Here both canvases are tensors on the inference device; batches of
-fixed-shape tiles are added into them in place (the canvases are the only
-copy, so no second scene-sized buffer is allocated), and each scene is
-finalized and copied to the host once. Edge tiles carry a validity mask
-so zero-padded regions add zero weight.
+
+- ``ImageStitcher``: that class on the host (numpy), tile by tile, saving
+  each combined canvas as a GeoTIFF (``geo/tiff.py``) or through PIL.
+- ``DeviceStitcher``: both canvases are tensors on the inference device;
+  batches of fixed-shape tiles are added into them in place (the canvases
+  are the only copy, so no second scene-sized buffer is allocated), and
+  each scene is finalized and copied to the host once. Edge tiles carry a
+  validity mask so zero-padded regions add zero weight.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+from floodplanet_code_tpu_torch.geo import tiff
+
+
+class ImageStitcher:
+    """Host-side overlap-average stitcher (reference utils_image.py:364;
+    the JAX package's ``ImageStitcher``)."""
+
+    def __init__(
+        self,
+        save_dir: str,
+        image_type_name: str = "",
+        save_backend: str = "tifffile",
+        save_ext: str = ".tif",
+    ):
+        self.save_dir = save_dir
+        self.save_ext = save_ext
+        self.save_backend = save_backend
+        self.image_type_name = image_type_name
+        self._images_combined = False
+        os.makedirs(save_dir, exist_ok=True)
+        self.image_canvas: dict[str, np.ndarray] = {}
+        self.weight_canvas: dict[str, np.ndarray] = {}
+        self.geo_sources: dict[str, str] = {}
+
+    def add_image(
+        self,
+        image: np.ndarray,
+        image_name: str,
+        crop_info,
+        og_height: int,
+        og_width: int,
+        geo_from: str | None = None,
+    ) -> None:
+        """Accumulate one tile ([h,w] or [h,w,c]) into the scene canvas at
+        ``crop_info``'s (h0, w0, hE, wE); ``geo_from``: a GeoTIFF whose geo
+        tags the saved scene carries."""
+        h0, w0, h_end, w_end = crop_info.h0, crop_info.w0, crop_info.hE, crop_info.wE
+        if image.ndim not in (2, 3):
+            raise NotImplementedError(f"tiles of {image.ndim} dimensions")
+        if image_name not in self.image_canvas:
+            shape = (og_height, og_width) + image.shape[2:]
+            self.image_canvas[image_name] = np.zeros(shape, dtype=np.float32)
+            self.weight_canvas[image_name] = np.zeros((og_height, og_width), dtype=np.float32)
+        if geo_from is not None:
+            self.geo_sources.setdefault(image_name, geo_from)
+        self.image_canvas[image_name][h0:h_end, w0:w_end] += image[:h_end - h0, :w_end - w0]
+        self.weight_canvas[image_name][h0:h_end, w0:w_end] += 1.0
+
+    def add_images(self, images, image_names, crop_info, og_heights, og_widths):
+        for img, name, crop, oh, ow in zip(images, image_names, crop_info, og_heights,
+                                           og_widths):
+            self.add_image(img, name, crop, oh, ow)
+
+    def _combine_images(self) -> None:
+        if self._images_combined:
+            return
+        for name, canvas in self.image_canvas.items():
+            weights = self.weight_canvas[name] + 1e-5
+            if canvas.ndim == 3:
+                weights = weights[:, :, None]
+            self.image_canvas[name] = np.nan_to_num(canvas / weights)
+        self._images_combined = True
+
+    def get_combined_images(self) -> dict:
+        self._combine_images()
+        return self.image_canvas
+
+    def save_images(self, save_class: bool = False):
+        """Save each combined canvas to ``<save_dir>/<name>/<image_type_name>
+        <save_ext>``; returns (paths, names, sizes). ``save_class``
+        thresholds at 0.5 (utils_image.py:522-525). ``tifffile``: an f32
+        (Geo)TIFF through ``geo/tiff.py``, [C, H, W] for a multi-channel
+        canvas, with the geo tags of the scene's ``geo_from``; ``PIL``: uint8,
+        times 255 when the canvas is at most 1."""
+        save_paths, image_names, image_sizes = [], [], []
+        self._combine_images()
+        for name, canvas in self.image_canvas.items():
+            img_dir = os.path.join(self.save_dir, name)
+            os.makedirs(img_dir, exist_ok=True)
+            path = os.path.join(img_dir, self.image_type_name + self.save_ext)
+            image = canvas.copy()
+            if save_class:
+                image = (image >= 0.5).astype(np.float32)
+            if self.save_backend == "tifffile":
+                tiff.imwrite(path, image if image.ndim == 2 else np.transpose(image, (2, 0, 1)),
+                             geo_from=self.geo_sources.get(name))
+            elif self.save_backend == "PIL":
+                from PIL import Image
+
+                out = image * 255 if image.max() <= 1.0 else image
+                Image.fromarray(out.astype(np.uint8)).save(path)
+            else:
+                raise NotImplementedError(f'No save backend "{self.save_backend}"')
+            save_paths.append(path)
+            image_names.append(name)
+            image_sizes.append(canvas.shape)
+        return save_paths, image_names, image_sizes
 
 
 def stitch_batch(

@@ -30,12 +30,16 @@ Port choices:
   ``bn_relu_train``, the flax BatchNorm). Eval mode never reads it.
 - ``space_group`` (``set_space_group``; spatial partitioning, which the JAX
   package leaves to GSPMD): each rank holds a block of the image's rows, in
-  the group's rank order, and every 3x3 conv and 2x upsample reads one row
-  of each neighbour's block (``parallel/halo.py``), so that every rank
-  computes the whole image's output rows of its block. The 2x2 max pools
-  and 1x1 convs are local; every level's block has an even height when
-  ``H % (16 * spatial_shards) == 0`` (``parallel/mesh.py::check_height``).
-  None (one device, data parallelism, serving, export): no exchange.
+  the group's rank order, at every level the rows ``parallel/rows.py``
+  gives it (equal blocks of the input, then blocks of unequal height below
+  an odd end or an odd level), and computes the whole image's output rows
+  of its block. Every 3x3 conv and 2x upsample reads one row of each
+  neighbour's block (``parallel/halo.py``); a 2x2 max pool whose window
+  falls across two blocks reads the first row of the block below; the
+  pad-to-match of an odd level pads the last block alone; 1x1 convs are
+  local. Every height that the blocks divide runs, unless some block would
+  be empty at some level (``rows.row_layout`` raises). None (one device,
+  data parallelism, serving, export): no exchange.
 - ``conv_impl='pallas_fused'`` (the JAX config's name, kept so experiment
   configs load unchanged) runs every DoubleConv's middle BN -> ReLU -> conv
   boundary as one hand-written CUDA kernel (ops/conv_fused.py) on all nine
@@ -55,6 +59,7 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 from floodplanet_code_tpu_torch.ops.batchnorm import batch_stats, bn_relu_train
 from floodplanet_code_tpu_torch.ops.conv_fused import pack, relu_affine_conv3x3
 from floodplanet_code_tpu_torch.parallel import halo
+from floodplanet_code_tpu_torch.parallel.rows import RowLayout, row_layout
 
 CONV_IMPLS = ("xla", "pallas_fused")
 # Running statistics move as MOMENTUM*old + (1-MOMENTUM)*batch: the value
@@ -178,12 +183,32 @@ def set_bn_group(model: nn.Module, group) -> nn.Module:
 
 def set_space_group(model: nn.Module, group) -> nn.Module:
     """Treat every activation as this rank's block of image rows within
-    ``group`` (spatial partitioning: the 3x3 convs and 2x upsamples exchange
-    edge rows over it); None: whole images. Returns ``model``."""
+    ``group`` (spatial partitioning: the 3x3 convs, the 2x upsamples and the
+    pools of split windows exchange edge rows over it); None: whole images.
+    Returns ``model``."""
     for module in model.modules():
-        if isinstance(module, (DoubleConv, Up)):
+        if isinstance(module, (DoubleConv, UNetEncoder, UNetDecoder)):
             module.space_group = group
     return model
+
+
+def _row_layout(x: torch.Tensor, group) -> RowLayout | None:
+    """The row layout of a forward whose input block is ``x`` (level 0:
+    every block holds H / sp rows), or None without a space group."""
+    if group is None:
+        return None
+    n = halo.position(group)[1]
+    return row_layout(x.shape[2] * n, n)
+
+
+def _own_block(x: torch.Tensor, layout: RowLayout, level: int, s: int) -> tuple[int, int]:
+    """Block s's global rows [start, stop) at ``level``; raises unless x
+    holds that many rows."""
+    start, stop = layout.blocks[level][s]
+    if x.shape[2] != stop - start:
+        raise ValueError(f"block {s} holds {x.shape[2]} rows at UNet level {level}; the "
+                         f"row layout gives it {stop - start} ({layout.blocks[level]})")
+    return start, stop
 
 
 class DoubleConv(nn.Module):
@@ -249,7 +274,8 @@ class DoubleConv(nn.Module):
         storage and ``_version`` (moved by load_state_dict, a train-mode
         forward and most in-place updates) and the count of optimizer steps
         (a fused optimizer leaves ``_version`` as it was). Writes through
-        ``.data`` are not seen."""
+        ``.data`` are not seen. Not y's shape: a pack serves every block
+        height and batch (``pack`` reads the parameters alone)."""
         bn = self.bn0
         tensors = (bn.scale, bn.bias, bn.mean, bn.var, self.conv1.weight)
         return (y.dtype, _OPTIMIZER_STEPS[0],
@@ -295,7 +321,11 @@ class DoubleConv(nn.Module):
 
 class Down(nn.Module):
     """maxpool(2) then DoubleConv (reference unet.py:23-32). The 2x2/2 pool
-    floors odd sizes, as flax's VALID pool does."""
+    floors odd sizes, as flax's VALID pool does.
+
+    With a ``layout`` x is this rank's block at ``level`` of it, within
+    the encoder's space ``group``, and the pool gives its block at level + 1
+    (``_max_pool_rows``)."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_impl: str = "xla",
                  fused_bn: bool = True):
@@ -303,23 +333,39 @@ class Down(nn.Module):
         self.double_conv = DoubleConv(in_channels, out_channels, conv_impl=conv_impl,
                                       fused_bn=fused_bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layout: RowLayout | None = None, level: int = 0,
+                group=None) -> torch.Tensor:
+        if layout is not None:
+            return self.double_conv(_max_pool_rows(x, layout, level, group))
         return self.double_conv(F.max_pool2d(x, 2))
 
 
-def _upsample2x(x: torch.Tensor, align_corners: bool = False, group=None) -> torch.Tensor:
+def _max_pool_rows(x: torch.Tensor, layout: RowLayout, level: int, group) -> torch.Tensor:
+    """The 2x2 max pool of a height-sharded x: this block's rows of the
+    whole image's pool, its block at level + 1 (``parallel/rows.py``).
+
+    The block pools the windows whose first row it holds: it skips an odd
+    first row (the block above owns that window), joins the first row of
+    the block below where its last window is split
+    (``halo.join_rows``, whose backward returns that row's gradient to its
+    owner), and drops the last row of an odd level. Every rank joins or
+    not together: the exchange runs when any block's window is split."""
+    s, n = halo.position(group)
+    start, stop = _own_block(x, layout, level, s)
+    lo, hi = layout.blocks[level + 1][s]
+    if any(layout.borrows_below(level, k) for k in range(n)):
+        x = halo.join_rows(x, group, top=False, bottom=layout.borrows_below(level, s))
+    return F.max_pool2d(x[:, :, 2 * lo - start:2 * hi - start], 2)
+
+
+def _upsample2x(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
     """Bilinear 2x upsample (reference nn.Upsample(bilinear), unet.py:43-45).
 
     ``align_corners=False`` is the half-pixel convention with clamped edges,
     which is what the JAX package's dilated-conv form computes;
     ``align_corners=True`` serves checkpoints imported from the reference.
-
-    ``group`` (spatial partitioning): x is this rank's block of rows; the
-    output is the whole image's upsample's rows of this block
-    (``_upsample2x_rows``).
+    Under spatial partitioning ``_upsample2x_rows`` runs instead.
     """
-    if group is not None:
-        return _upsample2x_rows(x, align_corners, group)
     h, w = x.shape[-2:]
     return F.interpolate(
         x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners
@@ -346,35 +392,49 @@ def _align_corners_matrix(n_in: int, n_out: int, device: torch.device) -> torch.
         return mat.to(device)
 
 
-def _upsample2x_rows(x: torch.Tensor, align_corners: bool, group) -> torch.Tensor:
-    """The 2x upsample of a height-sharded x: this block's output rows.
+def _upsample2x_rows(x: torch.Tensor, align_corners: bool, group, layout: RowLayout,
+                     level: int) -> torch.Tensor:
+    """``Up``'s upsample and pad-to-match of the height for a height-sharded
+    x, its block at level + 1 of ``layout``: the rows of the whole image's
+    ``_pad_to_match(_upsample2x(x), skip)`` in this block's range at
+    ``level`` (the skip's), in height; the width is left to
+    ``_pad_to_match``.
 
-    One row of each neighbour's block is joined (``halo.exchange_rows``);
-    none at the image edge, where the interpolation clamps as the whole
-    image's does. Half-pixel: output row j reads source rows near
-    ``(j + 0.5) / 2 - 0.5``, so the extended block's upsample equals the
-    whole image's on this block's rows, and the two output rows of each
-    joined row are dropped. ``align_corners=True``: the source coordinate
-    ``o * (H - 1) / (2H - 1)`` depends on the whole height H, and output
-    block s reads source rows ``h*s - 1`` .. ``h*(s + 1)``: the rows of the
-    whole image's interpolation matrix that belong to this block, over the
-    extended block's columns, then the same along W, in f32 and rounded
-    once to x's dtype, as ``F.interpolate`` computes the whole image.
+    One row of each neighbour's block is joined (``halo.join_rows``); none
+    at the image edge, where the interpolation clamps as the whole image's
+    does. Half-pixel: output row j reads source rows ``floor(j/2 - 1/4)``
+    and the one after it, so the extended block's upsample equals the whole
+    image's on this block's rows, which start ``start - 2 * lo`` rows into it
+    (``lo``: the extended block's first source row; a block that starts on
+    an odd row keeps one more output row of the joined row there). ``align_corners=True``: the
+    source coordinate ``o * (n - 1) / (2n - 1)`` depends on the whole level's
+    height n: the rows of the whole image's interpolation matrix that belong
+    to this block, over the extended block's columns, then the same along W,
+    in f32 and rounded once to x's dtype, as ``F.interpolate`` computes the
+    whole image. Pad-to-match puts ``diff // 2`` zero rows on top of the
+    image (0: a level is at most one row taller than twice the next) and the
+    rest at its bottom, in the last block.
     """
-    top, bottom = halo.exchange_rows(x, group)
-    ext = torch.cat([t for t in (top, x, bottom) if t is not None], dim=2)
-    h, w = x.shape[-2:]
+    s, n = halo.position(group)
+    lo = _own_block(x, layout, level + 1, s)[0] - int(s > 0)
+    start, stop = layout.blocks[level][s]
+    src, height = layout.heights[level + 1], layout.heights[level]
+    ext = halo.join_rows(x, group)
+    pad = (height - 2 * src) // 2  # the whole image's zero rows on top
+    first, last = (min(max(r - pad, 0), 2 * src) for r in (start, stop))
+    w = x.shape[3]
     if not align_corners:
         out = F.interpolate(ext, size=(2 * ext.shape[2], 2 * w), mode="bilinear",
-                            align_corners=False)
-        return out[:, :, 2 * int(top is not None):out.shape[2] - 2 * int(bottom is not None)]
-    s, n = halo.position(group)
-    lo = h * s - int(top is not None)
-    mh = _align_corners_matrix(h * n, 2 * h * n, x.device)[2 * h * s:2 * h * (s + 1),
-                                                           lo:lo + ext.shape[2]]
-    out = torch.einsum("oh,bchw->bcow", mh, ext.float())
-    out = torch.einsum("pw,bcow->bcop", _align_corners_matrix(w, 2 * w, x.device), out)
-    return out.to(x.dtype).contiguous(memory_format=torch.channels_last)
+                            align_corners=False)[:, :, first - 2 * lo:last - 2 * lo]
+    else:
+        mh = _align_corners_matrix(src, 2 * src, x.device)[first:last, lo:lo + ext.shape[2]]
+        out = torch.einsum("oh,bchw->bcow", mh, ext.float())
+        out = torch.einsum("pw,bcow->bcop", _align_corners_matrix(w, 2 * w, x.device), out)
+        out = out.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    above, below = first - (start - pad), (stop - pad) - last
+    if above or below:
+        out = F.pad(out, (0, 0, above, below))
+    return out
 
 
 def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -404,14 +464,19 @@ class Up(nn.Module):
     ):
         super().__init__()
         self.align_corners = align_corners
-        self.space_group = None  # set_space_group
         self.double_conv = DoubleConv(
             in_channels, out_channels, mid_channels, conv_impl=conv_impl, fused_bn=fused_bn
         )
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = _pad_to_match(_upsample2x(x1, self.align_corners, self.space_group), x2)
-        return self.double_conv(torch.cat([x2, x1], dim=1))
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, layout: RowLayout | None = None,
+                level: int = 0, group=None) -> torch.Tensor:
+        """x1 one level below x2; with a ``layout`` both are this rank's
+        blocks of it within the decoder's space ``group``, x2's at ``level``."""
+        if layout is None:
+            up = _upsample2x(x1, self.align_corners)
+        else:
+            up = _upsample2x_rows(x1, self.align_corners, group, layout, level)
+        return self.double_conv(torch.cat([x2, _pad_to_match(up, x2)], dim=1))
 
 
 class UNetEncoder(nn.Module):
@@ -426,13 +491,16 @@ class UNetEncoder(nn.Module):
         self.down2 = Down(bfc * 2, bfc * 4, conv_impl, fused_bn)
         self.down3 = Down(bfc * 4, bfc * 8, conv_impl, fused_bn)
         self.down4 = Down(bfc * 8, bfc * 8, conv_impl, fused_bn)  # (bfc*16)//2, bilinear
+        self.space_group = None  # set_space_group
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        group = self.space_group
+        layout = _row_layout(x, group)
         x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
+        x2 = self.down1(x1, layout, 0, group)
+        x3 = self.down2(x2, layout, 1, group)
+        x4 = self.down3(x3, layout, 2, group)
+        x5 = self.down4(x4, layout, 3, group)
         return [x1, x2, x3, x4, x5]
 
 
@@ -451,13 +519,16 @@ class UNetDecoder(nn.Module):
         self.up3 = Up(bfc * 4, bfc, mid_channels=bfc * 2, **kw)
         self.up4 = Up(bfc * 2, bfc, **kw)
         self.outc = nn.Conv2d(bfc, n_classes, 1)
+        self.space_group = None  # set_space_group
 
     def forward(self, feats: list[torch.Tensor]) -> torch.Tensor:
         x1, x2, x3, x4, x5 = feats
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        group = self.space_group
+        layout = _row_layout(x1, group)
+        x = self.up1(x5, x4, layout, 3, group)
+        x = self.up2(x, x3, layout, 2, group)
+        x = self.up3(x, x2, layout, 1, group)
+        x = self.up4(x, x1, layout, 0, group)
         return _conv(x, self.outc).float()
 
 

@@ -15,19 +15,20 @@ arithmetic in the same order, on NCHW tensors (any memory format):
 its running update takes the unbiased variance.
 
 ``group`` (the JAX ``axis_name``, SyncBN): each rank holds its rows of the
-batch and the statistics are the whole batch's. Forward: mean and E[x^2]
-are summed over the group and divided by its size, as ``pmean`` does (the
-local counts are equal by construction, under spatial partitioning too,
-where every rank holds B/dp examples of H/sp image rows; an asynchronous
-device assert checks it). Backward: ``sum_dz``, ``sum_dz_xhat`` and the
-count are summed over the group for ``dx``. dscale and dbias are returned as this rank's
+batch and the statistics are the whole batch's. Forward: the group's mean
+and E[x^2] are ``sum_k n_k * stat_k / sum_k n_k`` over the ranks' pixel
+counts n_k, which differ under spatial partitioning once a level splits
+into blocks of unequal height (``parallel/rows.py``); with equal counts it
+is ``pmean``. Backward: ``sum_dz``, ``sum_dz_xhat`` and the count are
+summed over the group for ``dx``. dscale and dbias are returned as this rank's
 LOCAL sums: the train step sums every gradient over the group once
 (``parallel/shard_step.py``), which makes them global there. (JAX returns
 them global, ``:99-103`` there, because its typed AD adds no second sum.)
-``synced_batch_stats`` is the differentiable form for the statistics the
-fused pair and the flax BatchNorm take through autograd: its backward sums
-the statistics' cotangent over the group, the term through which every
-rank's pixels reach every other rank's through the shared statistics.
+``batch_stats`` with a group is the differentiable form for the statistics
+the fused pair and the flax BatchNorm take through autograd: its backward
+gives rank k ``n_k / N`` of the statistics' cotangent summed over the group
+(N the group's count), the term through which every rank's pixels reach
+every other rank's through the shared statistics.
 """
 
 from __future__ import annotations
@@ -54,35 +55,38 @@ def _local_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xf.mean(dim=_AXES), (xf * xf).mean(dim=_AXES)
 
 
-def _group_mean(stats: list, n: int, group) -> list:
-    """Each of ``stats`` averaged over ``group`` (one all-reduce), with the
-    ranks' counts ``n`` checked equal on the device, without a host sync."""
-    world = torch.distributed.get_world_size(group)
+def _group_mean(stats: list, n: int, group) -> tuple[list, torch.Tensor]:
+    """Each of ``stats``, this rank's means over its ``n`` pixels, as the
+    mean over the group's pixels, ``sum_k n_k * stat_k / sum_k n_k``, and
+    the group's count (one all-reduce, no host sync)."""
     ref = stats[0]
-    buf = torch.cat([s.reshape(-1) for s in stats] + [ref.new_full((1,), float(n))])
+    buf = torch.cat([s.reshape(-1) * n for s in stats] + [ref.new_full((1,), float(n))])
     all_reduce(buf, group)
-    torch._assert_async(buf[-1] == float(n * world),
-                        "SyncBN: the ranks hold unequal numbers of pixels")
-    out, offset = [], 0
+    out, offset, total = [], 0, buf[-1]
     for s in stats:
-        out.append((buf[offset:offset + s.numel()] / world).view_as(s))
+        out.append((buf[offset:offset + s.numel()] / total).view_as(s))
         offset += s.numel()
-    return out
+    return out, total
 
 
 class _SyncedStats(torch.autograd.Function):
-    """(mean, E[x^2]) of local statistics averaged over a group; the
-    backward averages the cotangents over the group (module docstring)."""
+    """(mean, E[x^2]) of local statistics over a group's pixels; the
+    backward gives this rank ``n / N`` of the cotangents summed over the
+    group (module docstring)."""
 
     @staticmethod
     def forward(ctx, mean, m2, n, group):
-        ctx.group, ctx.n = group, n
-        return tuple(_group_mean([mean, m2], n, group))
+        (mean, m2), total = _group_mean([mean, m2], n, group)
+        ctx.group, ctx.share = group, n / total
+        return mean, m2
 
     @staticmethod
     def backward(ctx, dmean, dm2):
-        dmean, dm2 = _group_mean([dmean.contiguous(), dm2.contiguous()], ctx.n, ctx.group)
-        return dmean, dm2, None, None
+        c = dmean.numel()
+        buf = torch.cat([dmean.reshape(-1), dm2.reshape(-1)])
+        all_reduce(buf, ctx.group)
+        return ((buf[:c] * ctx.share).view_as(dmean), (buf[c:] * ctx.share).view_as(dm2),
+                None, None)
 
 
 def batch_stats(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,7 +110,7 @@ class _BNReLUTrain(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps, group):
         mean, m2 = _local_stats(x)
         if group is not None:
-            mean, m2 = _group_mean([mean, m2], x.shape[0] * x.shape[2] * x.shape[3], group)
+            (mean, m2), _ = _group_mean([mean, m2], x.shape[0] * x.shape[2] * x.shape[3], group)
         var = torch.clamp_min(m2 - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
         a, b = _affine(x, scale, bias, mean, inv)

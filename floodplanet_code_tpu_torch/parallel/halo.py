@@ -8,12 +8,14 @@ activation, in row order (the group's rank is the block's index), and a 3x3
 conv or a 2x bilinear upsample of its rows reads one row of each
 neighbour's block.
 
-``exchange_rows(x, group, k)`` returns ``(top, bottom)``: the ``k`` rows
-above this block (the last rows of the block before it) and the ``k`` rows
-below it (the first rows of the block after it), or None where the block
-meets the image edge. It is differentiable: the backward sends the
-gradient of the received rows back to their owners, which add it into
-their edge rows.
+``join_rows(x, group, k, top, bottom)`` returns the block with the ``k``
+rows above it (the last rows of the block before it) joined on top and
+the ``k`` rows below it (the first rows of the block after it) joined at
+the bottom, each where asked and where that block exists (not at the
+image's edges). It is differentiable: the backward sends the gradient of
+the joined rows back to their owners, which add it into their edge rows.
+The blocks may differ in height (``parallel/rows.py``); each must hold at
+least ``k`` rows.
 
 Both directions are ONE all-reduce (sum) over the group of a zeroed
 ``[sp, 2, B, k, W, C]`` buffer in which each rank fills its own slot; a
@@ -23,7 +25,7 @@ CUDA tensors (two ranks sharing a card), gloo on the CPU and NCCL between
 cards alike (``parallel/collectives.py``).
 
 ``apply_on_rows(fn, x, group)`` runs a SAME-padded 3x3 op on a block: the
-exchanged rows are joined above and below it, ``fn`` runs on the extended
+neighbours' rows are joined above and below it, ``fn`` runs on the extended
 block (its zero padding then applies only at the image edge, where no row
 was joined), and the output rows of the joined rows are dropped.
 """
@@ -41,49 +43,53 @@ def position(group) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
-class _ExchangeRows(torch.autograd.Function):
+class _JoinRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, k):
+    def forward(ctx, x, group, k, top, bottom):
         s, n = position(group)
-        ctx.group, ctx.k, ctx.shape = group, k, x.shape
+        top, bottom = top and s > 0, bottom and s < n - 1
+        ctx.group, ctx.k, ctx.joined = group, k, (top, bottom)
         # NHWC slots: a slot's rows are channels_last views of the buffer.
         buf = x.new_zeros((n, 2, x.shape[0], k, x.shape[3], x.shape[1]))
         buf[s, 0] = x[:, :, :k].permute(0, 2, 3, 1)
         buf[s, 1] = x[:, :, -k:].permute(0, 2, 3, 1)
         collectives.all_reduce(buf, group)
-        # At an image edge the slot read is a stand-in that exchange_rows drops.
-        top, bottom = buf[max(s - 1, 0), 1], buf[min(s + 1, n - 1), 0]
-        return top.permute(0, 3, 1, 2), bottom.permute(0, 3, 1, 2)
+        parts = ([buf[s - 1, 1].permute(0, 3, 1, 2)] if top else []) + [x] + (
+            [buf[s + 1, 0].permute(0, 3, 1, 2)] if bottom else [])
+        return torch.cat(parts, dim=2).contiguous(memory_format=torch.channels_last)
 
     @staticmethod
-    def backward(ctx, dtop, dbottom):
-        group, k = ctx.group, ctx.k
+    def backward(ctx, dext):
+        group, k, (top, bottom) = ctx.group, ctx.k, ctx.joined
         s, n = position(group)
-        b, c, _, w = dtop.shape
-        buf = dtop.new_zeros((n, 2, b, k, w, c))
-        if s > 0:
-            buf[s - 1, 1] = dtop.permute(0, 2, 3, 1)
-        if s < n - 1:
-            buf[s + 1, 0] = dbottom.permute(0, 2, 3, 1)
+        b, c, h, w = dext.shape
+        buf = dext.new_zeros((n, 2, b, k, w, c))
+        if top:
+            buf[s - 1, 1] = dext[:, :, :k].permute(0, 2, 3, 1)
+        if bottom:
+            buf[s + 1, 0] = dext[:, :, h - k:].permute(0, 2, 3, 1)
         collectives.all_reduce(buf, group)
-        # The neighbours' gradients of this block's edge rows (both land on
-        # one row of a one-row block).
-        dx = torch.zeros(ctx.shape, dtype=dtop.dtype, device=dtop.device).contiguous(
-            memory_format=torch.channels_last)
+        # This block's own rows, plus the neighbours' gradients of its edge
+        # rows (both land on one row of a one-row block).
+        dx = dext[:, :, k * top:h - k * bottom].clone(memory_format=torch.channels_last)
         dx[:, :, :k] += buf[s, 0].permute(0, 3, 1, 2)
         dx[:, :, -k:] += buf[s, 1].permute(0, 3, 1, 2)
-        return dx, None, None
+        return dx, None, None, None, None
 
 
-def exchange_rows(x: torch.Tensor, group, k: int = 1):
-    """``(top, bottom)``: the ``k`` rows of the blocks above and below
-    ``x``'s in ``group`` (None at the image's top or bottom edge),
-    channels_last [B, C, k, W]. Differentiable (module docstring)."""
+def join_rows(x: torch.Tensor, group, k: int = 1, top: bool = True,
+              bottom: bool = True) -> torch.Tensor:
+    """``x`` with the ``k`` last rows of the block above joined on top
+    (``top``) and the ``k`` first rows of the block below joined at the
+    bottom (``bottom``), each only where that block exists (none at the
+    image's edges), channels_last [B, C, k*top + h + k*bottom, W].
+
+    A collective: every rank of ``group`` calls it together, whatever it
+    joins itself. Differentiable (module docstring); ``x`` reaches the
+    output on every rank, so every rank's backward runs the exchange's."""
     if x.shape[2] < k:
         raise ValueError(f"a block of {x.shape[2]} rows cannot lend {k} rows")
-    s, n = position(group)
-    top, bottom = _ExchangeRows.apply(x, group, k)
-    return (top if s > 0 else None), (bottom if s < n - 1 else None)
+    return _JoinRows.apply(x, group, k, top, bottom)
 
 
 def apply_on_rows(fn, x: torch.Tensor, group) -> torch.Tensor:
@@ -92,7 +98,6 @@ def apply_on_rows(fn, x: torch.Tensor, group) -> torch.Tensor:
     belong to this block. ``group`` None: ``fn(x)``."""
     if group is None:
         return fn(x)
-    top, bottom = exchange_rows(x, group)
-    ext = torch.cat([t for t in (top, x, bottom) if t is not None], dim=2)
-    out = fn(ext.contiguous(memory_format=torch.channels_last))
-    return out[:, :, int(top is not None):out.shape[2] - int(bottom is not None)]
+    s, n = position(group)
+    out = fn(join_rows(x, group))
+    return out[:, :, int(s > 0):out.shape[2] - int(s < n - 1)]

@@ -18,8 +18,9 @@ process that joined no group is a world of one rank.
 
 ``make_mesh_2d`` builds the data x space layout of spatial partitioning
 (``tpu.spatial_shards``): rank (d, s) holds the rows of batch shard d and
-the block of image rows s (``local_height``); the ranks of one data row
-exchange their edge rows (``parallel/halo.py``, over ``space_group``).
+the block of image rows s (``local_height``: the JAX batch sharding's
+block; below it the blocks of ``parallel/rows.py``); the ranks of one data
+row exchange their edge rows (``parallel/halo.py``, over ``space_group``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from floodplanet_code_tpu_torch.parallel import collectives
+from floodplanet_code_tpu_torch.parallel.rows import row_layout
 
 # (axis names, axis sizes) -> {axis or "batch": group}: dist.new_group must
 # be called by every rank in the same order, so each layout makes its
@@ -210,28 +212,16 @@ def local_rows(mesh: Mesh, global_batch: int) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
-def check_height(height: int, sp: int) -> None:
-    """Raise unless ``sp`` blocks of ``height`` rows keep every UNet level's
-    block even: ``height % (16 * sp) == 0``. Then each 2x2 max pool is
-    local to a rank and pad-to-match never pads the height. (The JAX
-    package accepts any height: GSPMD pads uneven shards.)"""
-    if sp > 1 and height % (16 * sp):
-        raise ValueError(
-            f"spatial partitioning over {sp} shards needs a height with "
-            f"height % (16 * spatial_shards) == 0; got {height} (% {16 * sp} = "
-            f"{height % (16 * sp)})"
-        )
-
-
 def local_height(mesh: Mesh, height: int) -> slice:
-    """This rank's block of ``height`` image rows: ``height // sp`` rows
-    from ``space_index * height // sp`` (all of them without a ``space``
-    axis). Raises unless ``height % (16 * sp) == 0`` (``check_height``)."""
+    """This rank's block of ``height`` image rows: the JAX batch sharding's,
+    ``height // sp`` rows from ``space_index * height // sp`` (all of them
+    without a ``space`` axis). Raises ``ValueError`` for a layout that
+    ``rows.row_layout`` refuses: a height that sp does not divide, or a
+    block empty at some UNet level."""
     sp = n_space_shards(mesh)
-    check_height(height, sp)
-    per = height // sp
-    s = mesh.coords.get("space", 0)
-    return slice(s * per, (s + 1) * per)
+    if sp == 1:
+        return slice(0, height)
+    return row_layout(height, sp).block(0, mesh.coords["space"])
 
 
 def _state_tensors(state) -> list[torch.Tensor]:

@@ -28,10 +28,13 @@
   data x space mesh. A rank loads and augments its batch shard's rows at
   full height, as above (the sp ranks of one data row repeat the same
   draws on the same tiles, where GSPMD would gather), then keeps its block
-  of image rows (``mesh.local_height``; ``H % (16 * sp) == 0``). The model
-  exchanges edge rows around every 3x3 conv and 2x upsample over the space
-  group (``parallel/halo.py``), and the steps are ``make_train_step`` and
-  ``make_eval_step`` with every sum over all ranks.
+  of image rows (``mesh.local_height``: the JAX batch sharding's block of
+  H / sp rows; any height that sp divides, unless some rank's block would
+  be empty at some UNet level, ``parallel/rows.py``). The model exchanges
+  edge rows around every 3x3 conv and 2x upsample, and at every pool window
+  split between two ranks, over the space group (``parallel/halo.py``), and
+  the steps are ``make_train_step`` and ``make_eval_step`` with every sum
+  over all ranks (SyncBN weighting each rank by its pixels).
 
 Batches are dicts of tensors in the loader's layout: ``image`` [B,H,W,C],
 ``target`` [B,H,W] int, ``valid`` [B] bool, optional aux rasters
@@ -94,7 +97,6 @@ from floodplanet_code_tpu_torch.ops.metrics import (
 from floodplanet_code_tpu_torch.parallel import collectives, launch, multihost
 from floodplanet_code_tpu_torch.parallel.mesh import (
     all_group,
-    check_height,
     detect_n_pods,
     device_list,
     local_height,
@@ -106,6 +108,7 @@ from floodplanet_code_tpu_torch.parallel.mesh import (
     replicate_state,
     space_group,
 )
+from floodplanet_code_tpu_torch.parallel.rows import row_layout
 from floodplanet_code_tpu_torch.train.checkpoint import MONITOR_KEY, CheckpointManager
 from floodplanet_code_tpu_torch.train.logging import NullWriter, log_image_panel, open_writer
 from floodplanet_code_tpu_torch.train.state import (
@@ -376,8 +379,10 @@ def _spatial_shards(cfg) -> int:
 def _check_supported(cfg) -> None:
     """Raise for the settings the port does not run (before anything is
     written): the JAX package's own refusals of ``tpu.spmd_impl``
-    (``train/fit.py:377-386`` there), and a crop height that spatial
-    partitioning cannot split evenly (``mesh.check_height``)."""
+    (``train/fit.py:377-386`` there), a crop height that spatial
+    partitioning does not divide (the JAX batch sharding's refusal), and
+    one that leaves some rank's block empty at some UNet level
+    (``rows.row_layout``)."""
     spatial = _spatial_shards(cfg)
     spmd_impl = cfg.select("tpu.spmd_impl", "gspmd") or "gspmd"
     if spmd_impl not in ("gspmd", "shard_map"):
@@ -387,7 +392,8 @@ def _check_supported(cfg) -> None:
                          "spatial_shards>1 needs gspmd")
     if spmd_impl == "shard_map" and (cfg.select("loss.name", "ce") or "ce") != "ce":
         raise NotImplementedError("tpu.spmd_impl=shard_map supports the default CE loss only")
-    check_height(int(cfg.crop_height), spatial)
+    if spatial > 1:
+        row_layout(int(cfg.crop_height), spatial)
     block = cfg.select("tpu.multihost") or {}
     keys = ("coordinator_address", "num_processes", "process_id")
     given = [k for k in keys if block.get(k) is not None]
@@ -466,7 +472,8 @@ def fit_model(
     in a group (``torchrun``, a ``tpu.multihost`` block) is one rank.
     ``tpu.n_devices`` counts ranks: with ``tpu.spatial_shards`` = sp, the
     world / sp batch shards of sp blocks of rows each (module docstring);
-    the crop height must be a multiple of 16 * sp.
+    sp must divide the crop height and leave every rank a row at every
+    UNet level.
 
     ``tpu.debug_nans``: after every train step the loss, gradients,
     parameters and running statistics, after every validation step the loss

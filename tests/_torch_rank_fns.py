@@ -85,6 +85,40 @@ def ops_case(data: dict, device) -> dict:
     out["confusion"] = _np(confusion_from_logits(_nchw(data["logits"][rows], device), target,
                                                  2, group=group))
 
+    # Unequal pixel counts, as spatial partitioning's blocks of unequal
+    # height: every example on both ranks, rank 0 the first rows of each
+    # and rank 1 the rest. SyncBN, the statistics, the losses, the confusion.
+    def block(a, split):
+        return a[:, :split] if dist.get_rank() == 0 else a[:, split:]
+
+    split = data["unequal_split"]
+    x = _nchw(block(data["bn_x"], split["bn"]), device).requires_grad_()
+    scale = torch.from_numpy(data["bn_scale"]).requires_grad_()
+    bias = torch.from_numpy(data["bn_bias"]).requires_grad_()
+    z, mean, var = bn_relu_train(x, scale, bias, 1e-5, group)
+    z.backward(_nchw(block(data["bn_dz"], split["bn"]), device))
+    out["bn_unequal"] = {"z": _np(z), "mean": _np(mean), "var": _np(var), "dx": _np(x.grad),
+                         "dscale": _np(scale.grad), "dbias": _np(bias.grad)}
+    xs = _nchw(block(data["bn_x"], split["bn"]), device).requires_grad_()
+    m1, m2 = batch_stats(xs, group)
+    inv = torch.rsqrt(m2 - m1 * m1 + 1e-5).view(1, -1, 1, 1)
+    dz = _nchw(block(data["bn_dz"], split["bn"]), device)
+    (dz * (xs - m1.view(1, -1, 1, 1)) * inv).sum().backward()
+    out["stats_unequal"] = {"mean": _np(m1), "m2": _np(m2), "dx": _np(xs.grad)}
+    target = torch.from_numpy(block(data["target"], split["logits"])).to(device)
+    losses = {
+        "ce": lambda lg: cross_entropy_ignore(lg, target, 2, group=group),
+        "weighted_ce": lambda lg: weighted_cross_entropy(lg, target, weights, 2, group=group),
+        "dice": lambda lg: dice_loss(lg, target, 2, group=group),
+    }
+    for name, fn in losses.items():
+        logits = _nchw(block(data["logits"], split["logits"]), device).requires_grad_()
+        loss = fn(logits)
+        loss.backward()
+        out[f"{name}_unequal"] = {"loss": loss.item(), "grad": _np(logits.grad)}
+    out["confusion_unequal"] = _np(confusion_from_logits(
+        _nchw(block(data["logits"], split["logits"]), device), target, 2, group=group))
+
     # Three chained shard train steps, then the shard eval step, with the
     # fused pair (its plain version here) and without.
     for impl in ("xla", "pallas_fused"):
@@ -237,19 +271,108 @@ def fit_rank(runs, init_state_dict, device) -> list:
     return out
 
 
+def _spatial_steps(case: dict, mesh, steps: dict, device) -> dict:
+    """The spatial eval step (with ``case``'s padded rows) and one spatial
+    train step (SGD at lr 1, whose first update is the gradient) from
+    JAX's start, for each model configuration of ``steps``, on this rank's
+    block of ``case``'s batch."""
+    from floodplanet_code_tpu_torch.data.augment import TransformParams
+    from floodplanet_code_tpu_torch.parallel.mesh import all_group, local_height, space_group
+    from floodplanet_code_tpu_torch.train.fit import make_eval_step, make_train_step
+
+    every, space = all_group(mesh), space_group(mesh)
+    image, target = case["image"], case["target"]
+    rows, hs = local_rows(mesh, image.shape[0]), local_height(mesh, image.shape[1])
+    batch = {"image": torch.from_numpy(image[rows, hs]).to(device),
+             "target": torch.from_numpy(target[rows, hs]).to(device)}
+    valid = torch.from_numpy(case["valid"][rows]).to(device)
+    no_aug = TransformParams(False, 0, False, 0, False, 0)
+    out = {}
+    for name, kwargs in steps.items():
+        model = build_model("ef_model", {"ms_image": image.shape[-1]}, 3, base_feat_channels=8,
+                            device=device, bn_group=every, space_group=space, **kwargs)
+        state = create_train_state(model, {k: torch.from_numpy(v) for k, v in
+                                           case["start"].items()}, 1.0, optimizer_name="sgd")
+        logs = make_eval_step(model, 2, every)(state, dict(batch, valid=valid))
+        res = {"eval_loss": logs["loss"].item(), "eval_confusion": _np(logs["confusion"])}
+        step = make_train_step(model, 2, no_aug, fuse_augmentation=False, group=every)
+        state, logs = step(state, batch)
+        res.update(loss=logs["loss"].item(), confusion=_np(logs["confusion"]),
+                   grads={n: _np(p.grad) for n, p in model.named_parameters()},
+                   params={n: _np(p) for n, p in model.named_parameters()},
+                   buffers={n: _np(b) for n, b in model.named_buffers()})
+        out[name] = res
+    return out
+
+
+def _uneven_modules(case: dict, mesh, double_convs: list, device) -> dict:
+    """Blocks of unequal height (``parallel/rows.py``): at every level the
+    sharded pool (level -> level + 1) and the sharded upsample with
+    pad-to-match (level + 1 -> level, both conventions), and the sharded
+    DoubleConv at ``case["conv_level"]``: this rank's output rows and the
+    gradient of <out, g> (this rank's share)."""
+    from floodplanet_code_tpu_torch.models.unet import (
+        DoubleConv,
+        _max_pool_rows,
+        _pad_to_match,
+        _upsample2x_rows,
+        set_bn_group,
+        set_space_group,
+    )
+    from floodplanet_code_tpu_torch.parallel.mesh import all_group, space_group
+    from floodplanet_code_tpu_torch.parallel.rows import row_layout
+
+    every, space = all_group(mesh), space_group(mesh)
+    layout = row_layout(case["height"], mesh.shape["space"])
+    s = mesh.coords["space"]
+    rows = local_rows(mesh, case["x"][0].shape[0])
+
+    def own(a, level, requires_grad=False):
+        t = torch.from_numpy(a[rows, :, layout.block(level, s)]).to(device)
+        return t.contiguous(memory_format=torch.channels_last).requires_grad_(requires_grad)
+
+    out = {}
+    for level in range(len(layout.heights) - 1):
+        x = own(case["x"][level], level, True)
+        y = _max_pool_rows(x, layout, level, space)
+        (y * own(case["pool_g"][level], level + 1)).sum().backward()
+        out[f"pool{level}"] = {"out": _np(y), "dx": _np(x.grad)}
+        for ac in (False, True):
+            x = own(case["x"][level + 1], level + 1, True)
+            skip = own(case["up_g"][level], level)
+            up = _pad_to_match(_upsample2x_rows(x, ac, space, layout, level), skip)
+            (up * skip).sum().backward()
+            out[f"up{level}_{ac}"] = {"out": _np(up), "dx": _np(x.grad)}
+    level = case["conv_level"]
+    for impl, fused_bn in double_convs:
+        torch.manual_seed(0)
+        module = DoubleConv(case["x"][level].shape[1], case["conv_g"].shape[1], conv_impl=impl,
+                            fused_bn=fused_bn).to(device, memory_format=torch.channels_last).train()
+        set_space_group(set_bn_group(module, every), space)
+        x = own(case["x"][level], level, True)
+        y = module(x)
+        (y * own(case["conv_g"], level)).sum().backward()
+        out[f"double_conv_{impl}_{fused_bn}"] = {
+            "out": _np(y), "dx": _np(x.grad),
+            "grads": {n: _np(p.grad) for n, p in module.named_parameters()}}
+    return out
+
+
 def spatial_case(data: dict, device) -> dict:
     """Spatial partitioning on a 2 x 2 data x space mesh: this rank's block
     (its batch shard's rows, its block of image rows) through the row
     exchange, the sharded upsample and DoubleConv, the spatial train and
-    eval steps, and ``replicate_state``."""
-    from floodplanet_code_tpu_torch.data.augment import TransformParams
+    eval steps, and ``replicate_state``; then blocks of unequal height: the
+    sharded pool, upsample and DoubleConv and the steps at each of
+    ``data["uneven"]``'s heights, on its mesh (the 2 x 2 mesh, or a 1 x 4
+    mesh of the same ranks)."""
     from floodplanet_code_tpu_torch.models.unet import (
         DoubleConv,
-        _upsample2x,
+        _upsample2x_rows,
         set_bn_group,
         set_space_group,
     )
-    from floodplanet_code_tpu_torch.parallel.halo import exchange_rows
+    from floodplanet_code_tpu_torch.parallel.halo import join_rows
     from floodplanet_code_tpu_torch.parallel.mesh import (
         all_group,
         local_height,
@@ -257,7 +380,7 @@ def spatial_case(data: dict, device) -> dict:
         replicate_state,
         space_group,
     )
-    from floodplanet_code_tpu_torch.train.fit import make_eval_step, make_train_step
+    from floodplanet_code_tpu_torch.parallel.rows import row_layout
     from floodplanet_code_tpu_torch.train.state import init_weights
 
     mesh = make_mesh_2d(2, 2)
@@ -265,30 +388,33 @@ def spatial_case(data: dict, device) -> dict:
     rank, s = dist.get_rank(), mesh.coords["space"]
     out = {"coords": mesh.coords, "space_ranks": dist.get_process_group_ranks(space)}
 
-    # (a) the exchange: <cat(top, x, bottom), weight> of this rank's block.
+    # (a) the exchange: <join_rows(x), weight> of this rank's block.
     for k in (1, 2):
         x_all = data["exchange_x"]  # [B, C, H, W]
         per = x_all.shape[2] // 2
         rows = local_rows(mesh, x_all.shape[0])
         x = torch.from_numpy(x_all[rows, :, s * per:(s + 1) * per]).to(device).requires_grad_()
-        top, bottom = exchange_rows(x.contiguous(memory_format=torch.channels_last), space, k)
-        ext = torch.cat([t for t in (top, x, bottom) if t is not None], dim=2)
+        ext = join_rows(x.contiguous(memory_format=torch.channels_last), space, k)
         weight = torch.from_numpy(data["exchange_w"][rank][..., :ext.shape[2], :]).to(device)
         (ext * weight).sum().backward()
-        out[f"exchange{k}"] = {"ext": _np(ext), "dx": _np(x.grad), "top": top is not None}
+        out[f"exchange{k}"] = {"ext": _np(ext), "dx": _np(x.grad),
+                               "joined": ext.shape[2] - x.shape[2]}
 
     # (b) the sharded modules against the unsharded ones: forward and the
     # gradient of <out, g> (this rank's share).
     x_all = data["module_x"]
     rows, hs = local_rows(mesh, x_all.shape[0]), local_height(mesh, x_all.shape[2])
+    layout = row_layout(2 * x_all.shape[2], 2)  # x at level 1, the output at level 0
     for ac in (False, True):
         x = torch.from_numpy(x_all[rows, :, hs]).to(device).requires_grad_()
-        up = _upsample2x(x.contiguous(memory_format=torch.channels_last), ac, space)
+        up = _upsample2x_rows(x.contiguous(memory_format=torch.channels_last), ac, space,
+                              layout, 0)
         g = data["upsample_g"][rows, :, 2 * hs.start:2 * hs.stop]
         (up * torch.from_numpy(g).to(device)).sum().backward()
         out[f"upsample_{ac}"] = {"out": _np(up), "dx": _np(x.grad)}
         x = torch.from_numpy(x_all[rows, :, hs]).to(device, torch.bfloat16)
-        up = _upsample2x(x.contiguous(memory_format=torch.channels_last), ac, space)
+        up = _upsample2x_rows(x.contiguous(memory_format=torch.channels_last), ac, space,
+                              layout, 0)
         out[f"upsample_bf16_{ac}"] = {"out": _np(up.float())}
     for impl, fused_bn in data["double_convs"]:
         torch.manual_seed(0)
@@ -302,27 +428,8 @@ def spatial_case(data: dict, device) -> dict:
             "out": _np(y), "dx": _np(x.grad),
             "grads": {n: _np(p.grad) for n, p in module.named_parameters()}}
 
-    # (c), (d) one spatial train step (SGD at lr 1, whose first update is
-    # the gradient) and the eval step with a padded row, from JAX's start.
-    image, target = data["image"], data["target"]
-    rows, hs = local_rows(mesh, image.shape[0]), local_height(mesh, image.shape[1])
-    batch = {"image": torch.from_numpy(image[rows, hs]).to(device),
-             "target": torch.from_numpy(target[rows, hs]).to(device)}
-    valid = torch.from_numpy(data["valid"][rows]).to(device)
-    no_aug = TransformParams(False, 0, False, 0, False, 0)
-    for name, kwargs in data["steps"].items():
-        model = build_model("ef_model", {"ms_image": image.shape[-1]}, 3, base_feat_channels=8,
-                            device=device, bn_group=every, space_group=space, **kwargs)
-        state = create_train_state(model, {k: torch.from_numpy(v) for k, v in
-                                           data["start"].items()}, 1.0, optimizer_name="sgd")
-        logs = make_eval_step(model, 2, every)(state, dict(batch, valid=valid))
-        res = {"eval_loss": logs["loss"].item(), "eval_confusion": _np(logs["confusion"])}
-        step = make_train_step(model, 2, no_aug, fuse_augmentation=False, group=every)
-        state, logs = step(state, batch)
-        res.update(loss=logs["loss"].item(), confusion=_np(logs["confusion"]),
-                   grads={n: _np(p.grad) for n, p in model.named_parameters()},
-                   params={n: _np(p) for n, p in model.named_parameters()},
-                   buffers={n: _np(b) for n, b in model.named_buffers()})
+    # (c), (d) one spatial train step and the eval step with a padded row.
+    for name, res in _spatial_steps(data, mesh, data["steps"], device).items():
         out[f"step_{name}"] = res
 
     # (e) every rank starts from its own weights; replicate_state gives
@@ -332,4 +439,10 @@ def spatial_case(data: dict, device) -> dict:
     state = replicate_state(create_train_state(model, None, 1e-3, ema=True), mesh)
     out["replicated"] = np.concatenate(
         [_np(t).ravel() for t in [*model.state_dict().values(), *state.ema_params.values()]])
+
+    # (f) blocks of unequal height, each case on its mesh.
+    for key, case in data["uneven"].items():
+        mesh = make_mesh_2d(*case["mesh"])
+        out[f"uneven_{key}"] = dict(_uneven_modules(case, mesh, data["double_convs"], device),
+                                    steps=_spatial_steps(case, mesh, data["steps"], device))
     return out

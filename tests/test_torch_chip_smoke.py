@@ -30,9 +30,14 @@ count no kernel launch:
   pod-sharded cache and the resume, infer over two replicas;
 - spatial partitioning, in the same two ranks: the steps on a 1 x 2 data x
   space mesh against one rank, the halo-extended fused conv (its plain
-  version here) and the spatial fit.
+  version here) and the spatial fit;
+- scripts/torch_relu_flips.py, which explains the f64 witness's readings.
 """
 
+import importlib.util
+import os
+
+import pytest
 import torch
 
 import chip_smoke
@@ -157,8 +162,10 @@ def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """Phases 13 and 14 with two CPU ranks (gloo): the data-parallel steps
     against one rank, one rank through the launcher, the 2-rank fits with
     both caches and the resume, the one-rank fit, infer over two replicas;
-    the spatial steps against one rank and the spatial fit."""
+    the spatial steps against one rank at an even and an uneven crop, and
+    the spatial fit at the uneven crop."""
     monkeypatch.setattr(chip_smoke, "TILE", 64)
+    monkeypatch.setattr(chip_smoke, "SP_TILE", 50)  # blocks 25/25, 13/12, 7/5, 4/2, 2/1
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
     monkeypatch.setattr(chip_smoke, "BASE", 8)
     monkeypatch.setattr(chip_smoke, "TRAIN_SCENES", [(150, 200)] * 5)
@@ -180,5 +187,38 @@ def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     # fewer backward: the image's needs no gradient.
     assert [c["halo"]["count"] for c in spatial["collectives_per_rank"]] == [43, 43]
     assert set(spatial["halo_parity"].values()) == {0.0}  # one code path on the CPU
-    assert len(spatial["fit"]["losses"]) == 2
+    # At 50 rows the pools out of levels 0, 1 and 2 split a window: three
+    # more exchanges each way.
+    crop = spatial["crop"]
+    assert [c["halo"]["count"] for c in crop["collectives_per_rank"]] == [49, 49]
+    assert set(crop["halo_parity"].values()) == {0.0}
+    assert crop["halo_parity_blocks"] == {"level2": [7, 5], "level3": [4, 2], "bottleneck": [2, 1]}
+    assert [r["block_rows"] for r in crop["pack_reuse"]] == [7, 5]
+    assert len(crop["f64_witness"]["spatial"]) == 2
+    assert all(v <= chip_smoke.SP_F64_TOL for w in crop["f64_spatial"] for v in w)
+    assert len(spatial["fit"]["losses"]) == 2 and spatial["fit"]["crop"] == 50
     assert not (tmp_path / "work").exists()
+
+
+def _relu_flips_script():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "torch_relu_flips.py")
+    spec = importlib.util.spec_from_file_location("torch_relu_flips", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("tile", [48, 50])
+def test_relu_flips_separate_rounding_from_relu_decisions(tile):
+    """The f32 step's gradients against the f64 step's on the phase-14
+    rehearsal's batches: rounding alone (below 1e-5 of their norm) where
+    every ReLU is decided alike, more where one is decided the other way."""
+    out = _relu_flips_script().main(["--tile", str(tile), "--base", "8", "--batch", "4",
+                                     "--scenes", "150x200", "--device", "cpu"])
+    assert set(out["flipped_layer_elements"]) == set(out["relu_flips"])
+    assert out["relu_elements"] > 0
+    if out["relu_flips"]:
+        assert 1e-5 < out["grad_gap_global"] < 1e-2
+    else:
+        assert out["grad_gap_global"] < 1e-5

@@ -170,7 +170,8 @@ def test_finished_experiment_returns_at_once(synthetic_csdap_root, tmp_path, cap
 # raises there, before anything is written: more cards than are present;
 # spatial partitioning on one rank; the JAX package's own refusals of
 # shard_map with another loss than CE and with spatial partitioning; a
-# crop height that spatial partitioning cannot split evenly; a
+# crop height that leaves a spatial block empty at some UNet level (32 rows
+# over 4 blocks: level 4 has 2 rows); a
 # tpu.multihost block with one of its three keys; the pod-sharded scene
 # cache without a pod axis (one process).
 _REFUSED = {
@@ -178,7 +179,7 @@ _REFUSED = {
     "tpu.spatial_shards=2": ([], ValueError, "needs 2 devices"),
     "tpu.spmd_impl=shard_map": (["loss.name=ce_dice"], NotImplementedError, "CE loss only"),
     "tpu.spmd_impl=shard_map tpu.spatial_shards=2": ([], ValueError, "needs gspmd"),
-    "tpu.spatial_shards=4": ([], ValueError, r"height % \(16 \* spatial_shards\) == 0"),
+    "tpu.spatial_shards=4": ([], ValueError, "block 1 without a row at UNet level 4"),
     "tpu.multihost.num_processes=2": ([], ValueError, "needs all three"),
     "tpu.device_cache_shard=pod": ([], ValueError, "needs a pod axis"),
 }

@@ -10,11 +10,16 @@ parameters. Per epoch the losses agree to 1e-4 relative and the validation
 Jaccard/F1 to 1e-3 absolute, the tolerances of the one-device fit test.
 Every side effect is rank 0's alone (the config snapshot, the TensorBoard
 writer, the checkpoint writes), and a resumed fit restores on both ranks.
-The same ranks then fit with ``tpu.spatial_shards=2`` (one batch shard,
-each rank 16 of the 32 rows; an image panel at every step, on rank 0's
-full-height rows): its losses and metrics are held to the same JAX fit,
-the function of one device, by the same bounds.
+The same ranks then fit with ``tpu.spatial_shards=2`` at 48^2 crops (one
+batch shard, each rank 24 of the 48 rows; levels 48, 24, 12, 6, 3, so the
+pool into the last level has a window split between the ranks, and that
+level's blocks are 2 and 1 rows; an image panel at every step, on rank 0's
+full-height rows): its losses and metrics are held to the JAX package's
+fit at 48^2 on two devices, the function of one device, by the same
+bounds. Both JAX fits run in this process while the ranks run.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import glob
 import json
@@ -60,9 +65,10 @@ def _epochs(exp):
     return out
 
 
+SPATIAL_CROP = ["crop_height=48", "crop_width=48", "crop_stride=48"]
+
+
 def test_two_rank_fit_matches_jax(synthetic_csdap_root, tmp_path, capfd):
-    jcfg = jax_compose(overrides=_overrides(synthetic_csdap_root, "tpu.n_devices=2"))
-    jax_fit_model(jcfg, overwrite_exp_dir=str(tmp_path / "jax"))
     valid = jax_build_dataset("floodplanet", "valid", jax_slices(32, 32, 32), sensor="PS",
                               eval_region="RegionA", ignore_index=-1, seed_num=0,
                               root_dir=synthetic_csdap_root)
@@ -77,11 +83,17 @@ def test_two_rank_fit_matches_jax(synthetic_csdap_root, tmp_path, capfd):
     exp, exp_sp = str(tmp_path / "port"), str(tmp_path / "port_spatial")
     runs = [(compose(overrides=_overrides(synthetic_csdap_root)), exp),
             (compose(overrides=_overrides(synthetic_csdap_root, "tpu.spatial_shards=2",
-                                          "log_image_iter=1")), exp_sp)]
-    ranks = launch.spawn(fns.fit_rank, (runs, start), devices=["cpu", "cpu"],
-                         timeout_s=120, join_timeout_s=DEADLINE)
-    want = _epochs(str(tmp_path / "jax"))
-    for k, path in enumerate((exp, exp_sp)):
+                                          "log_image_iter=1", *SPATIAL_CROP)), exp_sp)]
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(launch.spawn, fns.fit_rank, (runs, start), devices=["cpu", "cpu"],
+                              timeout_s=120, join_timeout_s=DEADLINE)
+        for name, extra in (("jax", []), ("jax_spatial", SPATIAL_CROP)):
+            jcfg = jax_compose(overrides=_overrides(synthetic_csdap_root, "tpu.n_devices=2",
+                                                    *extra))
+            jax_fit_model(jcfg, overwrite_exp_dir=str(tmp_path / name))
+        ranks = spawned.result()
+    for k, (path, jax_path) in enumerate(((exp, "jax"), (exp_sp, "jax_spatial"))):
+        want = _epochs(str(tmp_path / jax_path))
         got, fits = _epochs(path), [r[k] for r in ranks]
         assert sorted(got) == sorted(want) == [0]
         for key in ("train_loss", "valid_loss"):

@@ -81,6 +81,7 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.parallel.launch",
         "floodplanet_code_tpu_torch.parallel.shard_step",
         "floodplanet_code_tpu_torch.parallel.halo",
+        "floodplanet_code_tpu_torch.parallel.rows",
     ):
         assert expected in names
 

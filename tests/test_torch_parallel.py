@@ -14,6 +14,11 @@ must equal it. Tolerances:
 - the three losses and the confusion on 2 ranks with unequal ignored
   pixels per rank against the unsharded JAX losses: values 1e-6 relative,
   gradients 1e-6 absolute + 1e-5 relative, the confusion equal.
+- unequal pixel counts per rank (spatial partitioning's blocks of unequal
+  height: every example on both ranks, rank 0 its first rows, rank 1 the
+  rest): SyncBN, the differentiable statistics, the three losses and the
+  confusion against the JAX functions of the whole batch, by the bounds
+  above.
 - three chained shard train steps (ef_model, base 8, f32, Adam at 1e-3,
   2 rows per rank) against the JAX shard_map step: the first step's
   all-reduced gradients against the JAX gradient of the whole batch within
@@ -94,6 +99,7 @@ def case():
         "logits": (rng.standard_normal((4, 8, 8, 3)) * 2).astype(np.float32),
         "target": rng.choice([0, 1, 2], (4, 8, 8)).astype(np.int32),
         "class_weights": np.asarray([0.2, 1.0, 3.0], np.float32),
+        "unequal_split": {"bn": 2, "logits": 3},  # rank 0's rows of 6 and of 8
         "lr": LR,
     }
     # Rank 0's rows nearly all ignored (class 2), rank 1's untouched.
@@ -227,6 +233,49 @@ def test_synced_statistics_match_the_whole_batch(case):
     _close(np.concatenate([_nhwc(r["stats"]["dx"]) for r in results]), dx, atol=1e-5)
 
 
+def _rows(results, key, field):
+    """The ranks' blocks of image rows joined (NHWC)."""
+    return np.concatenate([_nhwc(r[key][field]) for r in results], axis=1)
+
+
+def test_sync_bn_weights_unequal_pixel_counts(case):
+    """Rank 0 holds 2 of each example's 6 rows, rank 1 the other 4: the
+    statistics, z and dx are the whole batch's, the ranks' dscale and
+    dbias sum to its."""
+    data, results, _, _ = case
+    args = [jnp.asarray(data[k]) for k in ("bn_x", "bn_scale", "bn_bias")]
+    (z, mean, var), vjp = jax.vjp(lambda x, s, b: jax_bn(x, s, b, 1e-5, None), *args)
+    dx, dscale, dbias = vjp((jnp.asarray(data["bn_dz"]), jnp.zeros_like(mean),
+                             jnp.zeros_like(var)))
+    _close(_rows(results, "bn_unequal", "z"), z)
+    _close(_rows(results, "bn_unequal", "dx"), dx)
+    for r in results:
+        _close(r["bn_unequal"]["mean"], mean)
+        _close(r["bn_unequal"]["var"], var)
+    _close(sum(r["bn_unequal"]["dscale"] for r in results), dscale, atol=1e-5)
+    _close(sum(r["bn_unequal"]["dbias"] for r in results), dbias, atol=1e-5)
+
+
+def test_synced_statistics_weight_unequal_pixel_counts(case):
+    """The differentiable statistics on the 2 / 4 row split: values and
+    gradient as the whole batch's (an unweighted mean of the ranks' means
+    would be off by far more than the bound)."""
+    data, results, _, _ = case
+    w = jnp.asarray(data["bn_dz"])
+
+    def f(x):
+        m1, m2 = jax_stats(x, None)
+        return jnp.sum(w * (x - m1) * jax.lax.rsqrt(m2 - m1 * m1 + 1e-5)), (m1, m2)
+
+    (_, (m1, m2)), dx = jax.value_and_grad(f, has_aux=True)(jnp.asarray(data["bn_x"]))
+    for r in results:
+        _close(r["stats_unequal"]["mean"], m1)
+        _close(r["stats_unequal"]["m2"], m2)
+    _close(_rows(results, "stats_unequal", "dx"), dx, atol=1e-5)
+    halves = [data["bn_x"][:, :2].mean((0, 1, 2)), data["bn_x"][:, 2:].mean((0, 1, 2))]
+    assert np.abs((halves[0] + halves[1]) / 2 - np.asarray(m1)).max() > 1e-3
+
+
 # -- (c) the global losses and confusion -------------------------------------------
 
 
@@ -247,6 +296,24 @@ def test_losses_are_global_with_unequal_ignored_pixels(case, name):
     # pixel counts are far apart.
     valid = (data["target"] != 2).reshape(2, -1).sum(1)
     assert valid[0] * 4 < valid[1]
+
+
+@pytest.mark.parametrize("name", ["ce", "weighted_ce", "dice"])
+def test_losses_are_global_at_unequal_row_blocks(case, name):
+    """Rank 0 holds 3 of each example's 8 rows, rank 1 the other 5."""
+    data, results, _, _ = case
+    logits, target = jnp.asarray(data["logits"]), jnp.asarray(data["target"])
+    weights = jnp.asarray(data["class_weights"])
+    fn = {"ce": lambda lg: jl.cross_entropy_ignore(lg, target, 2),
+          "weighted_ce": lambda lg: jl.weighted_cross_entropy(lg, target, weights, 2),
+          "dice": lambda lg: jl.dice_loss(lg, target, 2)}[name]
+    value, grad = jax.value_and_grad(fn)(logits)
+    for r in results:
+        np.testing.assert_allclose(r[f"{name}_unequal"]["loss"], float(value), rtol=1e-6)
+    _close(_rows(results, f"{name}_unequal", "grad"), grad, rtol=1e-5, atol=1e-6)
+    want = jm.confusion_from_logits(logits, target, 2)
+    for r in results:
+        np.testing.assert_array_equal(r["confusion_unequal"], np.asarray(want))
 
 
 def test_confusion_is_the_global_tally(case):
