@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, fit, evaluation,
-model-tool, data-tool, multi-device and spatially partitioned paths on one
-NVIDIA card (two ranks share it) and check them.
+model-tool, data-tool, multi-device and spatially partitioned paths and
+the repository's root entry points on one NVIDIA card (two ranks share it)
+and check them.
 
 Run from the repository root, with no arguments:
 
@@ -47,8 +48,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    after one optimizer step alone (the pack cache must re-pack each time;
    the fused eval must agree with the unfused model), exact launch counts
    of both kernels, one f32 step fused + kernel shear against unfused +
-   plain shear with an f64 unfused step as the witness, device times of
-   the steps and profiles of one train step and one augment step;
+   plain shear with an f64 unfused step as the witness, the model's 2x
+   upsample at the decoder's four levels (its forward ``F.interpolate``
+   bit for bit, its deterministic backward within UPSAMPLE_TOL of the
+   exact one and timed against ``F.interpolate``'s), device times of the
+   steps,
+   the fused and unfused step with deterministic algorithms on (as the fit
+   runs them) and off, and profiles of one train step and one augment
+   step;
 9. fit: the training phase's scenes and model through
    ``python -m floodplanet_code_tpu_torch.fit`` (its ``main``) with the
    reference's default transforms: every batch of one epoch from the HBM
@@ -57,9 +64,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    held to the retention rules, finite losses, timing.json, exact conv
    launches: 9 per train step, validation batch and image panel); a resume
    to a 4th epoch whose restored tensors equal the file's bit for bit; a
-   no-op re-run with no launch; a 2-epoch fit through the host loader; and
+   no-op re-run with no launch; a 2-epoch fit through the host loader;
    ``infer`` from the best checkpoint through the cache and the host
    loader on one warm model (probabilities within 1e-6, argmax equal);
+   and the fit's reproduction (fit_reproduction): fits of REPRO_EPOCHS
+   epochs run twice from scratch under pallas_fused and under xla, and 1
+   epoch resumed to REPRO_EPOCHS under pallas_fused, every per-epoch
+   metric and every tensor of the final checkpoint equal bit for bit;
 10. evaluation: ``predict`` from a checkpoint directory of the full-width
    early-fusion model over the serving phase's scenes (geo-tagged, tiles
    overlapping by half): with every report and scene artifact (each file
@@ -72,9 +83,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    the HTTP daemon (``serve`` on 127.0.0.1, port 0, in a thread): health,
    two requests on one root whose masks must equal ``infer``'s bit for
    bit, the 400 and 404 replies; ``batch_infer`` over two roots, its masks
-   equal to ``infer``'s; exact conv launches; the predict split (forward
-   by CUDA events, loading + stitching, metrics, artifacts on the host
-   clock) and the daemon's cold and warm request seconds;
+   equal to ``infer``'s (kept for phase 15); exact conv launches; the
+   predict split (forward by CUDA events, loading + stitching, metrics,
+   artifacts on the host clock) and the daemon's cold and warm request
+   seconds;
 11. model tools, on the full-width early-fusion model: ``run_crossval``'s
    ``main`` over two folds of synthetic PlanetScope regions at the
    reference recipe (300^2 crops, stride 150, Adam 1e-4, ignore_index -1)
@@ -100,7 +112,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    and map_coordinates against the roll shear at 512^2; ``fused_bn=false``
    (under pallas_fused, the fused pair off) against ``fused_bn=true`` on the
    same weights, the bf16 eval forward and an f32 train step; fits with
-   ``tpu.debug_nans`` off, on and off again (the losses) and on a poisoned
+   ``tpu.debug_nans`` off, on and off again (the losses equal bit for
+   bit: the fit is deterministic) and on a poisoned
    batch (``FloatingPointError`` at the step); ``visualize_transforms`` on
    the card, ``generate_dataset_visualizations``, ``compute_feature_stats``,
    ``delete_failed_experiments --dry_run`` over the phase's experiments, and
@@ -118,7 +131,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    NCCL; a 2-rank ``fit_model`` (parallel/launch.py) through the replicated
    scene cache, resumed on both ranks through the pod-sharded cache as 2
    pods (its batches equal the replicated ones), rank 0 alone writing,
-   per-epoch losses within 3% of the one-rank fit; ``infer`` over two
+   per-epoch losses within 3% of the one-rank fit, the ranks' final
+   parameters and statistics equal bit for bit; ``infer`` over two
    replicas against one device (>= 99.9% of pixels, |dp| <= DPROB_TOL). On
    a machine with two cards or more, the 2-rank fit over NCCL and ``infer``
    over two cards too; else one line says they were not run;
@@ -144,19 +158,30 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    image, equal to packing per call); a 2-rank spatial ``fit_model`` at
    SP_TILE^2 of MD_EPOCHS epochs through the replicated cache with a
    full-height image panel every SP_LOG_IMAGE_ITER steps, rank 0 alone
-   writing, finite per-epoch losses, reported beside a one-rank fit at the
-   same crop (not held to it: the card's bf16 fits differ between runs by
-   as much; the f32 step checks carry its correctness on the card, and
+   writing, finite per-epoch losses, the ranks' final states bit for bit,
+   reported beside a one-rank fit at the same crop (not held to it: the
+   ranks sum in another order and a bf16 fit's epochs carry the rounding;
+   the f32 step checks carry its correctness on the card, and
    tests/test_torch_fit_ranks.py holds a spatial fit with a split pool
-   window to the JAX fit on the CPU). Its numbers are the ``spatial``
-   entry of the multi-device JSON (``crop``: the SP_TILE steps).
+   window to the JAX fit on the CPU). At SP_TILE the f32 steps are also
+   held with matched ReLUs (sp_matched_step): the spatial step applies the
+   one-rank step's ReLU decisions and pool choices, and its gradients must
+   lie within SP_MATCHED_TOL of that step's. Its numbers are the
+   ``spatial`` entry of the multi-device JSON (``crop``: the SP_TILE
+   steps).
 
-The last ten lines of standard output are the serving slice's numbers as
-JSON, the training phase's numbers as JSON, the fit phase's numbers as
+15. the root entry points: ``bench_torch.main`` (bench.py's workload on
+   the port) under both conv_impl values, each JSON line logged: finite
+   positive rates, equal FLOP counts, ``0 < mfu <= 1``, exact conv
+   launches; ``Batch_infer_torch.sh`` on phase 10's checkpoint and roots,
+   its masks equal to ``batch_infer``'s bit for bit.
+
+The last eleven lines of standard output are the serving slice's numbers
+as JSON, the training phase's numbers as JSON, the fit phase's numbers as
 JSON, the evaluation phase's numbers as JSON, the model tools' numbers as
 JSON, the data tools' numbers as JSON, the multi-device phase's numbers as
-JSON, the card's name and power limit, the ``kernels`` JSON line and the
-``{"ok": true, ...}`` line.
+JSON, the entry points' numbers as JSON, the card's name and power limit,
+the ``kernels`` JSON line and the ``{"ok": true, ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
@@ -176,9 +201,13 @@ import threading
 import time
 import warnings
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# The fits run under deterministic algorithms (train/fit.py), which need
+# this before the process's first cuBLAS call; spawned ranks inherit it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from floodplanet_code_tpu_torch import fit as fit_cli
 from floodplanet_code_tpu_torch.config import Config, compose, load_experiment_config, save_config
@@ -198,6 +227,7 @@ from floodplanet_code_tpu_torch.data.device_cache import (
     build_device_cache,
     make_batch_builder,
 )
+from floodplanet_code_tpu_torch.device import peaks
 from floodplanet_code_tpu_torch.geo import tiff
 from floodplanet_code_tpu_torch.inference import batch_infer as batch_infer_mod
 from floodplanet_code_tpu_torch.inference import predict as predict_mod
@@ -263,7 +293,6 @@ LEVELS = [
 ]
 # Dense bf16 tensor-core FLOP/s and HBM bytes/s (NVIDIA data sheets, SXM
 # parts, at the full 700 W power limit).
-PEAKS = {"H100": (989e12, 3.35e12), "H200": (989e12, 4.8e12)}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # of max|ref|
 DPROB_TOL = 5e-3  # max |fused - unfused| stitched probability, bf16 model
 SCENES = [(2100, 3300), (2100, 3300), (1500, 2700)]  # ragged edges at 512^2
@@ -309,6 +338,10 @@ FIT_EPOCHS = 3
 FIT_LIMIT_TRAIN = 15
 FIT_LIMIT_VAL = 2
 FIT_LOG_IMAGE_ITER = 10
+# The reproduction check (fit_reproduction): fits of REPRO_EPOCHS epochs of
+# at most REPRO_LIMIT_TRAIN steps, compared bit for bit.
+REPRO_EPOCHS = 2
+REPRO_LIMIT_TRAIN = 4
 LOCAL_TOL = 1e-6  # cache vs loader with norm_mode local, of max|ref|
 PROB_TOL = 1e-6  # stitched probabilities, cache vs host path
 
@@ -334,6 +367,10 @@ TOOLS_LIMIT_TRAIN = 10
 TOOLS_LIMIT_VAL = 4
 EXPORT_DPROB_TOL = 1e-5  # exported program vs the live predict step
 MASK_AGREE_MIN = 0.9999  # artifact daemon vs infer, should the masks not be equal
+# Phase 15: bench_torch's timed steps per timing (bench.py's 20), and where
+# phase 10 leaves its checkpoint, roots and batch_infer masks for it.
+BENCH_STEPS = 20
+KEEP = os.path.join(REPO, "build", "chip_smoke_entry")  # listed in .gitignore
 
 # Data-tools phase: the serving phase's scenes through fits with the
 # config's default conv_impl (xla), each cut to DATA_EPOCHS epochs of at
@@ -380,6 +417,17 @@ SP_F64_TOL = 1e-5
 # both forms, in the CPU rehearsal at 50^2 (one such ReLU) 1.55 and 1.05
 # (PERF.md).
 SP_WITNESS_RATIO = 2.0
+# The matched-ReLU check at SP_TILE (sp_matched_step): the spatial f32
+# step applies the one-rank f32 step's ReLU decisions and 2x2 pool
+# choices, so no decision taken at rounding distance (a ReLU input near
+# zero, a near tie in a pool window) parts the two; the gradients must lie
+# within SP_MATCHED_TOL of their norm and SP_MATCHED_MAX_TOL of their
+# largest element of the one-rank step's, each tensor. What is left is f32
+# rounding, largest in the BatchNorm scales' sums over 720K pixels per
+# channel: 1.34e-4 and 1.92e-4 on the card (PERF.md), 1.9e-5 in
+# the CPU rehearsal at 50^2; unmatched, 8.3e-3 and 4.5e-2.
+SP_MATCHED_TOL = 5e-4
+SP_MATCHED_MAX_TOL = 2e-3
 SP_LOG_IMAGE_ITER = 4
 # The uneven case: the reference's default crop (config.yaml: 300^2), whose
 # levels 300, 150, 75, 37, 18 split over 2 ranks into 150/150, 75/75, 38/37,
@@ -389,6 +437,10 @@ SP_LOG_IMAGE_ITER = 4
 SP_TILE = 300
 SP_PARITY_LEVELS = {"even": (0, 4), "uneven": (2, 3, 4)}
 AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0, 1]
+# The model's upsample backward against the exact one (F.interpolate's in
+# f64), of the largest element: f32 rounding; one bf16 rounding of the f32
+# sum, at most 2^-8 of a value.
+UPSAMPLE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
 
 
 def log(msg: str) -> None:
@@ -414,13 +466,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-
-
-def peaks(name: str) -> tuple[float, float]:
-    for key, value in PEAKS.items():
-        if key in name:
-            return value
-    raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
 # -- 2. build ---------------------------------------------------------------
@@ -1135,6 +1180,96 @@ def profile_step(card: str, fn, calls: int = 1) -> dict:
             "classes_ms": {k: v[0] for k, v in classes.items()}}
 
 
+def upsample_parity(card: str, device) -> dict:
+    """The model's 2x upsample (models/unet.py::_upsample2x: its own
+    backward, deterministic) at the four decoder levels of the training
+    phase's bf16 step, and once in f32: the forward bit-identical to
+    ``F.interpolate``, the backward within UPSAMPLE_TOL of the largest
+    element of the exact one (``F.interpolate``'s in f64), beside
+    ``F.interpolate``'s own distance to it (its CUDA backward adds with
+    atomics in the input's dtype). On a card, each backward's time (CUDA
+    events), and that of torch's own deterministic form of
+    ``F.interpolate``'s (the mode on)."""
+    from floodplanet_code_tpu_torch.models.unet import _interpolate2x, _upsample2x
+
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {"levels": []}
+    shapes = [(TRAIN_BATCH, BASE * 8 >> k, TILE >> (4 - k)) for k in range(4)]
+    for (b, c, h), dtype in [(s, torch.bfloat16) for s in shapes] + [(shapes[-1], torch.float32)]:
+        x = torch.randn((b, c, h, h), generator=gen, device=device).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn((b, c, 2 * h, 2 * h), generator=gen, device=device).to(dtype)
+        ours, ref = x.clone().requires_grad_(), x.clone().requires_grad_()
+        y, want = _upsample2x(ours), _interpolate_as_before(ref)
+        if not torch.equal(y, want):
+            raise AssertionError(f"the upsample's forward differs from F.interpolate at {h}")
+        y.backward(g)
+        want.backward(g)
+        x64 = x.double().requires_grad_()
+        exact = torch.autograd.grad(_interpolate2x(x64, False), x64, g.double())[0]
+        scale = exact.abs().max()
+        err = ((ours.grad.double() - exact).abs().max() / scale).item()
+        row = {"shape": [b, c, h, h], "dtype": str(dtype).split(".")[-1], "rel_err": err,
+               "interpolate_rel_err": ((ref.grad.double() - exact).abs().max() / scale).item()}
+        del x64, exact
+        if not err <= UPSAMPLE_TOL[dtype]:
+            raise AssertionError(f"the upsample's backward at {row}: {err:.3e} of max")
+        if on_card:
+            # F.interpolate under the mode computes torch's decomposition,
+            # forward and backward.
+            for name, fn, mode in (("ms", _upsample2x, False),
+                                   ("interpolate_ms", _interpolate_as_before, False),
+                                   ("interpolate_deterministic_ms", _interpolate_as_before,
+                                    True)):
+                t = x.clone().requires_grad_()
+                with train_fit.deterministic_algorithms() if mode else contextlib.nullcontext():
+                    y = fn(t)
+                    row[name] = cuda_ms(lambda: torch.autograd.grad(y, t, g, retain_graph=True),
+                                        10)
+        out["levels"].append(row)
+    log(f"  upsample: forward = F.interpolate bit for bit; backward's distance to the exact "
+        f"one (ours, F.interpolate's) and its time (ms, per backward: ours, F.interpolate's, "
+        f"F.interpolate's under deterministic algorithms) {out['levels']} [{card}]")
+    return out
+
+
+def _interpolate_as_before(x, align_corners=False):
+    """The model's upsample before it had its own backward: F.interpolate."""
+    h, w = x.shape[-2:]
+    return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners)
+
+
+def determinism_cost(card, train_step, state, step_xla, state_xla, batch) -> dict:
+    """The fused and the unfused bf16 train step (CUDA events, batch
+    TRAIN_BATCH) with deterministic algorithms on (as fit_model runs them,
+    train/fit.py::deterministic_algorithms) and off, in turns (off, on, on,
+    off), and the fused step under the mode with F.interpolate in place of
+    the model's upsample (torch's own deterministic decomposition, forward
+    and backward)."""
+    from floodplanet_code_tpu_torch.models import unet
+
+    runs = {"fused": lambda: train_step(state, batch), "xla": lambda: step_xla(state_xla, batch)}
+    times: dict = {}
+    for mode in ("off", "on", "on", "off"):
+        with train_fit.deterministic_algorithms() if mode == "on" else contextlib.nullcontext():
+            for name, fn in runs.items():
+                times.setdefault(f"{name}_{mode}", []).append(cuda_ms(fn, 5))
+    port = unet._upsample2x
+    unet._upsample2x = _interpolate_as_before
+    try:
+        with train_fit.deterministic_algorithms():
+            times["fused_on_interpolate"] = [cuda_ms(runs["fused"], 5)]
+    finally:
+        unet._upsample2x = port
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"  train step ms per batch of {TRAIN_BATCH}, deterministic algorithms on/off: "
+        f"fused {out['fused_on']:.3f}/{out['fused_off']:.3f}, unfused "
+        f"{out['xla_on']:.3f}/{out['xla_off']:.3f}; fused, on, with F.interpolate (its "
+        f"decomposition) {out['fused_on_interpolate']:.3f} [{card}]")
+    return out
+
+
 def _pack_keys(model) -> list:
     return [m._fused[0] for m in model.modules() if hasattr(m, "_fused")]
 
@@ -1245,6 +1380,7 @@ def run_training(card: str, device="cuda") -> dict:
     log(f"  train tiles/s through the loader (host clock, loading, augmentation and "
         f"step included): {result['train_tiles_per_s']:.1f} [{card}]")
     result["f32_step"] = f32_step_check(card, eval_batch, device)
+    result["upsample"] = upsample_parity(card, device)
 
     if on_card:
         # Device times (CUDA events) at batch TRAIN_BATCH: the train step
@@ -1267,6 +1403,8 @@ def run_training(card: str, device="cuda") -> dict:
         for name, value in ms.items():
             log(f"  {name}: {value:.3f} ms per batch of {TRAIN_BATCH} [{card}]")
         result["ms"] = ms
+        result["determinism_ms"] = determinism_cost(card, train_step, state, step_xla,
+                                                    state_xla, fixed)
         # Estimated: the loop's steps at these device times over its wall time.
         busy = TRAIN_STEPS * (ms["train_step_fused"] + ms["augment_kernel"]) / 1e3 / loop_s
         result["device_busy_share"] = busy
@@ -1343,7 +1481,7 @@ def watch_checkpoints():
         path = save(self, state, epoch, metrics, force)
         saves.append({"epoch": epoch, "metric": metrics[ckpt.MONITOR_KEY], "force": force,
                       "losses": [metrics["train_loss"], metrics["valid_loss"]],
-                      "written": path is not None})
+                      "metrics": dict(metrics), "written": path is not None})
         return path
 
     def restoring(self, path, state):
@@ -1410,6 +1548,93 @@ def fit_forwards(timing: dict, n_loader: int, n_valid_batches: int) -> int:
     return steps + len(epochs) * min(FIT_LIMIT_VAL, n_valid_batches) + panels
 
 
+def latest_checkpoint(exp: str) -> str:
+    with open(os.path.join(exp, "checkpoints", "index.json")) as handle:
+        return os.path.join(exp, "checkpoints", json.load(handle)["latest"])
+
+
+def differing(a, b, path: str = "") -> list[str]:
+    """Where two checkpoint payloads (nested dicts and lists of tensors and
+    numbers) differ: tensors by dtype, shape and value (torch.equal)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and torch.equal(a, b))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for k, (x, y) in enumerate(zip(a, b)) for d in differing(x, y, f"{path}/{k}")]
+    return [] if a == b else [path]
+
+
+def fit_reproduction(data_root: str, cli: list, counted, forwards: dict, n_loader: int,
+                     n_valid_batches: int) -> dict:
+    """The fit's reproduction contract on the card (train/fit.py runs its
+    steps under deterministic algorithms): for each conv_impl, one fit of
+    REPRO_EPOCHS epochs of at most REPRO_LIMIT_TRAIN steps through the scene
+    cache run twice from scratch, whose per-epoch metrics (losses, Jaccard,
+    F1, accuracy) and every tensor of the final checkpoint.pt must be
+    equal bit for bit; for pallas_fused also 1 epoch resumed to
+    REPRO_EPOCHS, equal to the straight run in the same way (the JAX
+    package's promise, ARCHITECTURE.md: an interrupted-then-resumed run
+    produces the same checkpoints as an uninterrupted one). Records the
+    conv launches of each run in ``forwards``' terms (none under xla)."""
+    out = {}
+    for conv_impl in ("pallas_fused", "xla"):
+        runs = {}
+        names = ("first", "again") + (("resumed",) if conv_impl == "pallas_fused" else ())
+        for name in names:
+            exp = os.path.join(WORK, f"repro_{conv_impl}_{name}")
+            extra = (f"limit_train_batches={REPRO_LIMIT_TRAIN}", f"tpu.conv_impl={conv_impl}")
+            calls = [1, REPRO_EPOCHS] if name == "resumed" else [REPRO_EPOCHS]
+            with Phase(f"fit: reproduction, {conv_impl}, {name} ({' then '.join(map(str, calls))} "
+                       "epochs)"), watch_checkpoints() as (saves, _):
+                for epochs in calls:
+                    key = f"repro {conv_impl} {name} {epochs}"
+                    counted(key, lambda: fit_cli.main(cli + fit_overrides(data_root, exp,
+                                                                          epochs, *extra)))
+                    with open(os.path.join(exp, "timing.json")) as handle:
+                        timing = json.load(handle)
+                    forwards[key] = (fit_forwards(timing, n_loader, n_valid_batches)
+                                     if conv_impl == "pallas_fused" else 0)
+            runs[name] = {"metrics": [s["metrics"] for s in saves],
+                          "payload": ckpt.read_checkpoint(latest_checkpoint(exp))}
+        first = runs["first"]
+        for name in names[1:]:
+            if runs[name]["metrics"] != first["metrics"]:
+                raise AssertionError(f"fit reproduction, {conv_impl}: the {name} run's metrics "
+                                     f"{runs[name]['metrics']} differ from the first run's "
+                                     f"{first['metrics']}")
+            gap = differing(runs[name]["payload"], first["payload"])
+            if gap:
+                raise AssertionError(f"fit reproduction, {conv_impl}: the {name} run's final "
+                                     f"checkpoint differs from the first run's in {gap[:5]}")
+        n_tensors = sum(1 for _ in _tensors(first["payload"]))
+        out[conv_impl] = {"runs": list(names), "epochs": len(first["metrics"]),
+                          "checkpoint_tensors": n_tensors,
+                          "train_loss": [m["train_loss"] for m in first["metrics"]],
+                          "val_iou": [m[ckpt.MONITOR_KEY] for m in first["metrics"]]}
+        log(f"  reproduction, {conv_impl}: runs {list(names)} equal bit for bit in "
+            f"{len(first['metrics'])} epochs' metrics and {n_tensors} checkpoint tensors; "
+            f"train losses {out[conv_impl]['train_loss']}")
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def run_fit(card: str, device="cuda") -> dict:
     """Phase 9: the fit loop through its CLI on the scene cache, a resume,
     a no-op re-run, the host loader, and serving from the best checkpoint.
@@ -1471,6 +1696,7 @@ def run_fit(card: str, device="cuda") -> dict:
     forwards["host"] = fit_forwards(timing_host, n_loader, n_valid_batches)
     if not os.path.isfile(os.path.join(best, ckpt.CHECKPOINT_FILE)):
         raise AssertionError(f"no best checkpoint at {best!r}")
+    reproduction = fit_reproduction(data_root, cli, counted, forwards, n_loader, n_valid_batches)
 
     # Serving from the best checkpoint on one warm model, both input paths.
     cfg = load_experiment_config(exp)
@@ -1518,7 +1744,7 @@ def run_fit(card: str, device="cuda") -> dict:
                                                     "eval_wall", "ckpt_wall")},
         "steady_train_tiles_per_s": steady, "serve_tiles_per_s": serve_rate,
         "fit_cli_s": fit_s, "launches": launches, "local_norm_rel": local_worst,
-        "resume_epoch_trace": traced,
+        "resume_epoch_trace": traced, "reproduction": reproduction,
         "epochs": [s["epoch"] for s in saves + saves_more],
         "val_iou": [s["metric"] for s in saves + saves_more],
     }
@@ -1758,14 +1984,16 @@ def same_masks(got: dict, want: dict, what: str) -> None:
                                  f"({np.mean(got[key] != mask):.3e} of its pixels)")
 
 
-def run_evaluation(card: str, device="cuda") -> dict:
+def run_evaluation(card: str, device="cuda", keep_dir: str | None = None) -> dict:
     """Phase 10: ``predict`` of the early-fusion model on the serving
     phase's scenes (artifacts, per-crop stats, TTA, and against the unfused
     cuDNN path) and of the late-fusion model on Sen1Floods11 chips (the
     cache path against the host loader), then the HTTP daemon and
     ``batch_infer`` against ``infer``. ``device="cpu"`` rehearses it at a
     small size (tests/test_torch_chip_smoke.py): no kernel launches and no
-    device timing then."""
+    device timing then. ``keep_dir``: a directory into which the experiment,
+    the two roots and ``batch_infer``'s masks move for phase 15; their
+    paths are the result's ``kept``."""
     on_card = torch.device(device).type == "cuda"
     data_root, root2 = os.path.join(WORK, "eval_data"), os.path.join(WORK, "eval_data_2")
     s1_root = os.path.join(WORK, "eval_s1f11")
@@ -1952,11 +2180,99 @@ def run_evaluation(card: str, device="cuda") -> dict:
     if launches != expected:
         raise AssertionError(f"expected conv launches {expected}, got {launches}")
     out["launches"] = launches
+    if keep_dir is not None:
+        shutil.rmtree(keep_dir, ignore_errors=True)
+        os.makedirs(keep_dir)
+        moved = lambda path: os.path.join(keep_dir, os.path.relpath(path, WORK))  # noqa: E731
+        for path in (exp, data_root, root2, os.path.join(WORK, "eval_batch")):
+            shutil.move(path, moved(path))
+        out["kept"] = {"entry": moved(entry), "roots": [moved(data_root), moved(root2)],
+                       "masks": {moved(r): [moved(p) for p in results[r]]
+                                 for r in (data_root, root2)},
+                       "batch_masks": moved(os.path.join(WORK, "eval_batch"))}
     shutil.rmtree(WORK, ignore_errors=True)
     return out
 
 
 # -- 11. model tools: cross-validation, soups, ensembles, export, import --------
+
+
+# -- 15. the root entry points ---------------------------------------------------
+
+
+def run_entry_points(card: str, kept: dict, device="cuda") -> dict:
+    """Phase 15: the repository's root entry points on the port.
+    ``bench_torch.main`` at the training phase's size (bench.py's workload:
+    TILE^2, batch TRAIN_BATCH, base BASE) with both conv_impl values, each
+    JSON line logged: every rate finite and positive, ``flops`` the same
+    for both, on a card ``0 < mfu <= 1`` (and the forward's), exact conv
+    launches (9 per forward: the FLOP count's, and the warm-up and timed
+    steps of the three timings under pallas_fused; none under xla).
+    ``Batch_infer_torch.sh`` on phase 10's checkpoint and its two roots
+    (``kept``, run_evaluation's): its masks equal ``batch_infer``'s bit for
+    bit. ``device="cpu"`` rehearses it (tests/test_torch_chip_smoke.py): the
+    script then gets ``--device cpu`` after the roots."""
+    import bench_torch
+
+    on_card = torch.device(device).type == "cuda"
+    out = {"bench": {}, "launches": {}}
+    for conv_impl in ("xla", "pallas_fused"):
+        sync(device)
+        LAUNCHES.clear()  # a main path starts here
+        t0 = time.perf_counter()
+        res = bench_torch.main(conv_impl=conv_impl, device=device, tile=TILE,
+                               batch=TRAIN_BATCH, base_feat_channels=BASE, steps=BENCH_STEPS)
+        sync(device)
+        out["launches"][conv_impl] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        out["bench"][conv_impl] = dict(res, seconds=time.perf_counter() - t0)
+        log(f"  bench_torch --conv_impl {conv_impl}: {json.dumps(res)} [{card}]")
+        rates = [res[k] for k in ("value", "augmented_recipe_value", "inference_value")]
+        if not all(math.isfinite(v) and v > 0 for v in rates):
+            raise AssertionError(f"bench_torch ({conv_impl}): rates {rates}")
+        if on_card and not all(0 < res[k] <= 1 for k in ("mfu", "inference_mfu")):
+            raise AssertionError(f"bench_torch ({conv_impl}): mfu {res['mfu']}, inference "
+                                 f"{res['inference_mfu']}")
+    bench = out["bench"]
+    if (bench["xla"]["flops"], bench["xla"]["inference_flops"]) != (
+            bench["pallas_fused"]["flops"], bench["pallas_fused"]["inference_flops"]):
+        raise AssertionError("bench_torch counts other FLOPs for the two conv_impl values")
+    forwards = 1 + 3 * (bench_torch.WARMUP + BENCH_STEPS)
+    expected = {"xla": 0, "pallas_fused": 9 * forwards if on_card else 0}
+    if out["launches"] != expected:
+        raise AssertionError(f"bench_torch conv launches {out['launches']}, expected {expected}")
+
+    # Batch_infer_torch.sh, with ``python`` this interpreter (a wrapper,
+    # not a link: a link elsewhere would lose a virtual environment).
+    bindir = tempfile.mkdtemp(prefix="bin_", dir=os.path.dirname(kept["batch_masks"]))
+    with open(os.path.join(bindir, "python"), "w") as handle:
+        handle.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = dict(os.environ, PATH=bindir + os.pathsep + os.environ.get("PATH", ""),
+               PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    argv = ["bash", os.path.join(REPO, "Batch_infer_torch.sh"), kept["entry"], *kept["roots"]]
+    t0 = time.perf_counter()
+    run = subprocess.run(argv + ([] if on_card else ["--device", "cpu"]), cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    out["batch_infer_script_s"] = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"Batch_infer_torch.sh exited {run.returncode}: {run.stderr[-3000:]}")
+    # The script writes where batch_infer does by default:
+    # <exp>/batch_inference/<root>/<region>/<scene>.tif.
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(kept["entry"])), "batch_inference")
+    script_path = lambda p: os.path.join(out_dir, os.path.relpath(p, kept["batch_masks"]))  # noqa: E731
+    written = sorted(os.path.join(d, f) for d, _, files in os.walk(out_dir) for f in files)
+    want = sorted(script_path(p) for paths in kept["masks"].values() for p in paths)
+    if written != want:
+        raise AssertionError(f"Batch_infer_torch.sh wrote {written}, batch_infer {want}")
+    for root, paths in kept["masks"].items():
+        same_masks(read_masks([script_path(p) for p in paths]), read_masks(paths),
+                   f"Batch_infer_torch.sh {os.path.basename(root)}")
+    out["batch_infer_script_masks"] = len(want)
+    log(f"  Batch_infer_torch.sh over {len(kept['roots'])} roots: {len(want)} masks equal to "
+        f"batch_infer's, {out['batch_infer_script_s']:.2f} s (a new process, host clock) "
+        f"[{card}]")
+    shutil.rmtree(os.path.dirname(kept["batch_masks"]), ignore_errors=True)
+    return out
 
 
 def tools_overrides(data_root: str, *extra: str) -> list[str]:
@@ -2630,8 +2946,11 @@ def run_data_tools(card: str, device="cuda") -> dict:
                              "step_ms": step_ms}
     del probs, steps, gf, gt, g64, top2
 
-    # 4. tpu.debug_nans: clean fits off, on and off again (train steps on the
-    # card are not bit-reproducible run to run), and a poisoned fit.
+    # 4. tpu.debug_nans: clean fits off, on and off again, and a poisoned
+    # fit. The fit runs under deterministic algorithms (train/fit.py), so a
+    # clean fit reproduces bit for bit: off against off again and on
+    # against off must both read exactly 0 (and on within 4x of off, the
+    # rule from before the fit was deterministic, still holds).
     clean, timing = {}, {}
     for name, flag in (("off", "false"), ("on", "true"), ("off again", "false")):
         exp = os.path.join(runs, "nans_" + name.replace(" ", "_"))
@@ -2646,6 +2965,9 @@ def run_data_tools(card: str, device="cuda") -> dict:
         f"again by {gap_off:.3e}")
     if not gap_on <= 4 * gap_off:
         raise AssertionError("the clean fit's losses move with tpu.debug_nans")
+    if gap_off != 0.0 or gap_on != 0.0:
+        raise AssertionError(f"clean fits do not reproduce: on vs off {gap_on}, off vs off "
+                             f"again {gap_off}; both must be 0")
     per_step = {k: v["train_wall"] / sum(e["n_train_batches"] for e in v["epochs"])
                 for k, v in timing.items()}
     exp = os.path.join(runs, "nans_poisoned")
@@ -2782,6 +3104,113 @@ def _plain_fused_op():
         unet.relu_affine_conv3x3 = kernel
 
 
+@contextlib.contextmanager
+def _matched_decisions(decisions: dict, layout=None, group=None):
+    """Within the block the model's two kinds of decision, each train-mode
+    BatchNorm + ReLU (the BatchNormReLUs' ``bn_relu_train`` and the fused
+    pair's BN_0 in its op's plain version, which runs for the kernel) and
+    each 2x2 max pool, are explicit: a ReLU is ``torch.where(mask, x, 0)``
+    (the ReLU's gradient for that mask), a pool gathers each window's
+    chosen element. ``layout`` None: they are this run's own (``x > 0``, the
+    pool's argmax), appended to ``decisions["relu"]`` and
+    ``decisions["pool"]`` on the host, call by call. With the ``layout`` of
+    a space ``group``: call k applies the k-th recorded decisions, a whole
+    image's, at this rank's rows (its block, or its block with the
+    neighbours' rows joined for a 3x3 op; the level from the width), and
+    ``decisions["forced"]`` counts the elements where this run's own
+    decision differs. Statistics through ``ops/batchnorm.py::batch_stats``,
+    so autograd carries SyncBN as the fused pair's BN_0 does."""
+    from floodplanet_code_tpu_torch.models import unet
+    from floodplanet_code_tpu_torch.ops.batchnorm import batch_stats
+    from floodplanet_code_tpu_torch.parallel import halo
+
+    record = layout is None
+    calls = {"relu": 0, "pool": 0}
+    forced = decisions.setdefault("forced", {"relu": 0, "pool": 0})
+    max_pool2d = F.max_pool2d
+
+    def recorded(kind, x, rows_of_x):
+        k, calls[kind] = calls[kind], calls[kind] + 1
+        s, n = halo.position(group)
+        lo, hi = layout.blocks[layout.heights.index(x.shape[3])][s]
+        if rows_of_x != hi - lo:
+            lo, hi = lo - int(s > 0), hi + int(s < n - 1)
+        want = decisions[kind][k][:, :, lo:hi].to(x.device)
+        if want.shape[2] != rows_of_x:
+            raise AssertionError(f"{kind} {k}: {want.shape[2]} recorded rows for {rows_of_x}")
+        return want
+
+    def relu(x):
+        if record:
+            mask = x > 0
+            decisions.setdefault("relu", []).append(mask.cpu())
+        else:
+            mask = recorded("relu", x, x.shape[2])
+            forced["relu"] += int(((x > 0) != mask).sum())
+        return torch.where(mask, x, x.new_zeros(()))
+
+    def pool(x, kernel_size):
+        h, w = x.shape[2] // 2, x.shape[3] // 2
+        windows = torch.stack([x[:, :, dy:2 * h:2, dx:2 * w:2] for dy in (0, 1) for dx in (0, 1)],
+                              dim=-1)
+        own = windows.argmax(-1)  # the first largest, as max_pool2d picks
+        if record:
+            choice = own
+            decisions.setdefault("pool", []).append(choice.to(torch.uint8).cpu())
+        else:
+            choice = recorded("pool", windows[..., 0], h).long()
+            forced["pool"] += int((own != choice).sum())
+        out = windows.gather(-1, choice.unsqueeze(-1)).squeeze(-1)
+        if record and not torch.equal(out, max_pool2d(x, kernel_size)):
+            raise AssertionError("the recorded pool differs from max_pool2d")
+        return out
+
+    def bn_relu_train(x, scale, bias, eps=1e-5, group=None):
+        mean, m2 = batch_stats(x, group)
+        var = torch.clamp_min(m2 - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        a, b = (inv * scale).to(x.dtype), (bias - mean * inv * scale).to(x.dtype)
+        return relu(x * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)), mean.detach(), var.detach()
+
+    def fused(y, a, b, w, packed=None):
+        dt = y.dtype
+        z = relu(y * a.to(dt).view(1, -1, 1, 1) + b.to(dt).view(1, -1, 1, 1))
+        return F.conv2d(z, w.to(dt), padding=1).contiguous(memory_format=torch.channels_last)
+
+    saved = unet.bn_relu_train, unet.relu_affine_conv3x3
+    unet.bn_relu_train, unet.relu_affine_conv3x3, F.max_pool2d = bn_relu_train, fused, pool
+    try:
+        yield
+    finally:
+        (unet.bn_relu_train, unet.relu_affine_conv3x3), F.max_pool2d = saved, max_pool2d
+
+
+def sp_matched_step(spec: dict, device, block: dict, group, space, mesh) -> dict:
+    """One f32 train step from the seeded weights with matched decisions
+    (``_matched_decisions``): without a ``mesh`` the one-rank step, which
+    saves its ReLU masks and pool choices to ``spec["matched"]``; with one
+    the spatial step, which applies them. Its gradients, and how many of
+    the spatial step's own decisions the recorded ones overrode."""
+    from floodplanet_code_tpu_torch.parallel.mesh import n_space_shards
+    from floodplanet_code_tpu_torch.parallel.rows import row_layout
+
+    model, state = _md_model(spec, torch.float32, device, group, space)
+    step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
+                           fuse_augmentation=False, group=group)
+    if mesh is None:
+        decisions: dict = {}
+        with _matched_decisions(decisions):
+            step(state, block)
+        torch.save({k: decisions[k] for k in ("relu", "pool")}, spec["matched"])
+    else:
+        decisions = torch.load(spec["matched"])
+        with _matched_decisions(decisions, row_layout(spec["tile"], n_space_shards(mesh)),
+                                space):
+            step(state, block)
+    return {"grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "forced": decisions["forced"]}
+
+
 def md_steps(spec: dict, device, mesh=None) -> dict:
     """Phase 13's and 14's step checks on this process's share of
     ``spec``'s global batch: with ``mesh`` (a rank) the steps over its
@@ -2862,6 +3291,8 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
                             fuse_augmentation=False, group=group)(state, block)
         out["f64_grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
         del model, state
+    if spec.get("matched"):
+        out["matched"] = sp_matched_step(spec, device, block, group, space, mesh)
     model, state = _md_model(spec, torch.bfloat16, device, group, space)
     step = make_train_step(model, 0, TransformParams(False, 0, False, 0, False, 0),
                            fuse_augmentation=False, group=group)
@@ -3140,12 +3571,13 @@ def md_fit_rank(cfg: Config, exp: str, pod_parity: dict | None, device) -> dict:
     replicated cache's."""
     from floodplanet_code_tpu_torch.parallel import multihost
 
-    saves, writes = [], []
+    saves, writes, digests = [], [], []
     save, write = ckpt.CheckpointManager.save, ckpt.CheckpointManager._write
 
     def saving(self, state, epoch, metrics, force=False):
         saves.append({"epoch": epoch, "losses": [metrics["train_loss"], metrics["valid_loss"]],
                       "metric": metrics[ckpt.MONITOR_KEY]})
+        digests.append(state_digest(state.model))
         return save(self, state, epoch, metrics, force)
 
     def writing(self, *args, **kwargs):
@@ -3164,10 +3596,28 @@ def md_fit_rank(cfg: Config, exp: str, pod_parity: dict | None, device) -> dict:
         out["launches"] = LAUNCHES[conv_fused.KERNEL]  # and ends here
     finally:
         ckpt.CheckpointManager.save, ckpt.CheckpointManager._write = save, write
-    out["saves"], out["writes"] = saves, len(writes)
+    # What this rank holds at the fit's end: its parameters and running
+    # statistics, hashed (every rank's must be the same bits).
+    out["saves"], out["writes"], out["final_digest"] = saves, len(writes), digests[-1]
     if out["rank"] == 0:  # the writer of this fit's timing.json
         with open(os.path.join(exp, "timing.json")) as handle:
             out["timing"] = json.load(handle)
+    return out
+
+
+def state_digest(model) -> dict:
+    """SHA-256 of the bytes of the model's parameters and of its buffers
+    (running statistics), each in ``named_*`` order."""
+    import hashlib
+
+    out = {}
+    for kind, tensors in (("params", model.named_parameters()),
+                          ("buffers", model.named_buffers())):
+        h = hashlib.sha256()
+        for name, t in tensors:
+            h.update(name.encode())
+            h.update(t.detach().cpu().contiguous().flatten().view(torch.uint8).numpy().tobytes())
+        out[kind] = h.hexdigest()
     return out
 
 
@@ -3270,6 +3720,18 @@ def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: b
                          for w in out["f64_witness"]["spatial"] for i in (0, 1))
         if not all(v <= SP_F64_TOL for w in out["f64_spatial"] for v in w):
             failed.append(f"spatial f64 gradients vs 1 rank's: {out['f64_spatial']}")
+    if "matched" in one:
+        # The spatial step with the one-rank step's ReLU and pool decisions:
+        # no decision at rounding distance parts them, only f32 rounding.
+        gaps = [grad_rels(r["matched"]["grads"], one["matched"]["grads"]) for r in ranks]
+        out["matched_relu"] = {"rel_max": max(v[0] for g in gaps for v in g.values()),
+                               "rel_norm": max(v[1] for g in gaps for v in g.values()),
+                               "forced_per_rank": [r["matched"]["forced"] for r in ranks]}
+        if not (out["matched_relu"]["rel_norm"] <= SP_MATCHED_TOL
+                and out["matched_relu"]["rel_max"] <= SP_MATCHED_MAX_TOL):
+            worst_t = sorted(gaps[0], key=lambda k: -gaps[0][k][1])[:3]
+            failed.append(f"spatial f32 gradients with matched ReLUs at {tile}^2: "
+                          f"{out['matched_relu']}; worst {worst_t}")
     for r in ranks:
         if not _rel(r["f32_losses"][0], one["f32_losses"][0]) <= 1e-4:
             failed.append(f"spatial f32 loss {r['f32_losses']} vs 1 rank {one['f32_losses']}")
@@ -3341,6 +3803,10 @@ def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: b
         f"halo-extended rows {out['halo_parity']} (blocks {out['halo_parity_blocks']}); "
         f"pack reuse {out.get('pack_reuse')}; launches per rank {out['launches_per_rank']} "
         f"[{card}]")
+    if "matched_relu" in out:
+        log(f"  at {tile}^2 with matched ReLUs and pools the spatial f32 gradients' worst "
+            f"distance to the one-rank step's, and the decisions overridden per rank: "
+            f"{out['matched_relu']} [{card}]")
     if witness:
         log(f"  at {tile}^2 the gradients' worst (max, norm) distance to the one-rank f64 "
             f"step: one rank's f32 {out['f64_witness']['one_rank']}, spatial f32 "
@@ -3391,10 +3857,11 @@ def sp_fit_checks(run: list, one_losses: list, n_loader: int, n_valid_batches: i
     """Phase 14's 2-rank spatial fit at SP_TILE^2 crops: rank 0 alone
     writes, both ranks saw the same epochs, finite per-epoch losses, exact
     conv launches (the coordinator's image panels at full height included),
-    its steady tiles/s. Its losses' largest relative gap to the one-rank
-    fit's at the same crop is reported, not held to a bound: one rank's own
-    bf16 fit moves ~2% between runs on the card (PERF.md §7), so a bound
-    there would sit inside the noise."""
+    its steady tiles/s, and (run_multi_device) the ranks' final states
+    equal bit for bit. Its losses' largest relative gap to the one-rank
+    fit's at the same crop is reported, not held to a bound: the ranks sum
+    in another order than one rank, and a bf16 fit's epochs carry that
+    (up to 2.91e-2, PERF.md); the step checks carry its correctness."""
     if run[1]["writes"] != 0 or run[0]["writes"] == 0:
         raise AssertionError(f"spatial fit: checkpoint writes per rank {[r['writes'] for r in run]}")
     if run[0]["saves"] != run[1]["saves"] or run[0]["best"] != run[1]["best"]:
@@ -3453,7 +3920,7 @@ def run_multi_device(card: str, device="cuda") -> dict:
                           seed_num=0, train_split_pct=0.8)
     batch = next(iter(BatchLoader(ds_sp, MD_BATCH, shuffle=True, n_workers=8)))
     spec_sp = dict(spec, tile=SP_TILE, batch={k: batch[k] for k in ("image", "target")},
-                   f64=True)
+                   f64=True, matched=os.path.join(WORK, "sp_relu_masks.pt"))
     result = {}
     with Phase("multi-device: one rank"):
         one = md_steps(spec, device)
@@ -3592,6 +4059,12 @@ def run_multi_device(card: str, device="cuda") -> dict:
                                  f"{[r['writes'] for r in run]}; rank 0 alone must write")
         if run[0]["saves"] != run[1]["saves"] or run[0]["best"] != run[1]["best"]:
             raise AssertionError(f"{name} fit: the ranks saw different epochs or bests")
+    # Every rank takes the same update from the same all-reduced gradients:
+    # the ranks' final parameters and statistics, bit for bit.
+    for name, run in list(fits.items()) + [("spatial", sp_fit)]:
+        if run[0]["final_digest"] != run[1]["final_digest"]:
+            raise AssertionError(f"{name} fit: the ranks' final states differ "
+                                 f"({[r['final_digest'] for r in run]})")
     epochs = [s["epoch"] for r in (fits["replicated"][0], fits["pod"][0]) for s in r["saves"]]
     if epochs != list(range(2 * MD_EPOCHS)):
         raise AssertionError(f"the 2-rank fits ran epochs {epochs}")
@@ -3600,7 +4073,8 @@ def run_multi_device(card: str, device="cuda") -> dict:
         raise AssertionError(f"non-finite 2-rank fit losses {losses}")
     one_losses = [s["losses"] for s in saves_one]
     # The same global batches and draws: bf16 rounding and the sums' order
-    # apart, the same epochs (PERF.md §7: the card's run-to-run spread).
+    # apart (two ranks sum the gradients and the statistics in another
+    # order than one rank), the same epochs.
     fit_rel = max(_rel(a, b) for pa, pb in zip(losses, one_losses) for a, b in zip(pa, pb))
     if not fit_rel <= 3e-2:
         raise AssertionError(f"2-rank fit losses {losses[:MD_EPOCHS]} vs 1 rank {one_losses}")
@@ -3622,6 +4096,7 @@ def run_multi_device(card: str, device="cuda") -> dict:
                                              "fit_spatial")}
     result["spatial"] = spatial
     result["fit"] = {"losses": losses, "one_rank_losses": one_losses, "loss_rel": fit_rel,
+                     "final_digests": {k: fits[k][0]["final_digest"] for k in fits},
                      "pod_batches_equal": pod_batches, "launches_per_rank": fit_launches,
                      "steady_train_tiles_per_s": timing["steady_train_tiles_per_sec"],
                      "val_iou": [s["metric"] for r in (fits["replicated"][0], fits["pod"][0])
@@ -3725,13 +4200,16 @@ def main() -> int:
     with Phase("fit"):
         fit = run_fit(card)
     with Phase("evaluation"):
-        evaluation = run_evaluation(card)
+        evaluation = run_evaluation(card, keep_dir=KEEP)
+    kept = evaluation.pop("kept")
     with Phase("model tools"):
         tools = run_tools(card)
     with Phase("data tools and options"):
         data_tools = run_data_tools(card)
     with Phase("multi-device"):
         multi = run_multi_device(card)
+    with Phase("entry points"):
+        entry_points = run_entry_points(card, kept)
 
     # One forward launches the kernel once per level, so its least time is
     # the sum of the per-level bounds; it is bound by whichever resource
@@ -3753,12 +4231,14 @@ def main() -> int:
         # and the imported models; none on the cuDNN runs), every rank of
         # the multi-device phase, and spatial partitioning (9 per forward
         # of each rank's block, on its rows and its neighbours' edge rows,
-        # and per full-height image panel).
+        # and per full-height image panel), and bench_torch.py under
+        # pallas_fused (9 per forward of its three timings).
         "launches": (result["launches"] + train["launches"][conv_fused.KERNEL]
                      + sum(fit["launches"].values()) + sum(evaluation["launches"].values())
                      + sum(tools["launches"].values())
                      + data_tools["launches"][conv_fused.KERNEL]
-                     + multi["launches"]["conv"] + multi["spatial"]["launches"]["conv"]),
+                     + multi["launches"]["conv"] + multi["spatial"]["launches"]["conv"]
+                     + sum(entry_points["launches"].values())),
         "launches_by_path": {"serving": result["launches"],
                              "training": train["launches"][conv_fused.KERNEL],
                              "fit": sum(fit["launches"].values()),
@@ -3767,7 +4247,8 @@ def main() -> int:
                              # fused_bn=false and the rest: no kernel on the path
                              "data_tools": data_tools["launches"][conv_fused.KERNEL],
                              "multi_device": multi["launches"]["conv"],
-                             "spatial": multi["spatial"]["launches"]["conv"]},
+                             "spatial": multi["spatial"]["launches"]["conv"],
+                             "entry_points": sum(entry_points["launches"].values())},
         # bf16: the parity cases at batch 2 and the nine levels at batch 16.
         "max_abs_err": max(worst[torch.bfloat16][1], *(r["max_abs_err"] for r in rows)),
         "max_rel_err_f32": worst[torch.float32][0],
@@ -3820,6 +4301,7 @@ def main() -> int:
     log(json.dumps({"tools": tools}))
     log(json.dumps({"data_tools": data_tools}))
     log(json.dumps({"multi_device": {k: v for k, v in multi.items() if k != "launches"}}))
+    log(json.dumps({"entry_points": entry_points}))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ override values through their cartesian product, one job after another,
 each in ``multirun/<date>/<name>/<job_num>/``; bracketed values
 (``key=[a,b]``) are lists, not sweeps. ``--device`` (default ``cuda``)
 picks the device; without a card the run raises unless it is ``cpu``.
+The fit runs under deterministic algorithms (``train/fit.py``); this CLI
+sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` for it where it is unset.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import os
 import sys
 
 from floodplanet_code_tpu_torch.config import compose
-from floodplanet_code_tpu_torch.train.fit import fit_model
+from floodplanet_code_tpu_torch.train.fit import fit_model, set_cublas_workspace_config
 
 
 def _expand_multirun(overrides: list[str]) -> list[list[str]]:
@@ -58,6 +60,7 @@ def _pop_device(argv: list[str]) -> str:
 
 
 def main(argv: list[str] | None = None) -> str:
+    set_cublas_workspace_config()  # before any CUDA work: the fit is deterministic
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     multirun = False

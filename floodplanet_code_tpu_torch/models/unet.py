@@ -365,11 +365,73 @@ def _upsample2x(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
     which is what the JAX package's dilated-conv form computes;
     ``align_corners=True`` serves checkpoints imported from the reference.
     Under spatial partitioning ``_upsample2x_rows`` runs instead.
+
+    The forward is ``F.interpolate``'s kernel. Where a gradient is wanted the
+    backward is ``_Upsample2x``'s, not ``F.interpolate``'s, whose CUDA
+    kernel adds with atomics in x's dtype: its result moves run to run,
+    and whether torch swaps it for a deterministic form under
+    ``torch.use_deterministic_algorithms`` (the fit) depends on torch's
+    version. ``_Upsample2x``'s is deterministic on any version.
     """
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample2x.apply(x, align_corners)
+    return _interpolate2x(x, align_corners)
+
+
+def _interpolate2x(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    """``F.interpolate(x, size=(2h, 2w), mode="bilinear")``'s own kernel,
+    called directly: under ``torch.use_deterministic_algorithms`` on a card
+    ``F.interpolate`` computes a decomposition instead (PERF.md),
+    and the fit's forward and evaluation must stay the serving path's."""
     h, w = x.shape[-2:]
-    return F.interpolate(
-        x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners
-    )
+    return torch.ops.aten.upsample_bilinear2d(x, [2 * h, 2 * w], align_corners)
+
+
+def _stencil_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint along ``dim`` of the half-pixel 2x linear upsample with
+    clamped edges (2n entries of ``g`` give n): the forward's output rows
+    are ``out[2i] = 0.25 x[i-1] + 0.75 x[i]`` and ``out[2i+1] = 0.75 x[i] +
+    0.25 x[i+1]`` (the JAX package's stencil [0.25, 0.75, 0.75, 0.25],
+    models/unet.py:275-297 there), so source row i sums output rows 2i and
+    2i+1 at 0.75 and 2i-1 and 2i+2 at 0.25, and the clamped edges fold
+    ``out[0]``'s and ``out[2n-1]``'s outer taps into rows 0 and n-1. Each
+    row gathers its own outputs through strided views: no atomics."""
+    n = g.shape[dim] // 2
+    pairs = g.unflatten(dim, (n, 2))
+    even, odd = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    out = 0.75 * (even + odd)
+    out.narrow(dim, 1, n - 1).add_(odd.narrow(dim, 0, n - 1), alpha=0.25)
+    out.narrow(dim, 0, n - 1).add_(even.narrow(dim, 1, n - 1), alpha=0.25)
+    out.narrow(dim, 0, 1).add_(even.narrow(dim, 0, 1), alpha=0.25)
+    out.narrow(dim, n - 1, 1).add_(odd.narrow(dim, n - 1, 1), alpha=0.25)
+    return out
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``_interpolate2x`` with a deterministic backward, the adjoint of the
+    same function in f32 (f64 for an f64 x), rounded once to x's dtype:
+    half-pixel, the separable stencil's adjoint along H then W
+    (``_stencil_adjoint``); ``align_corners=True``, the transposed
+    ``_align_corners_matrix`` products."""
+
+    @staticmethod
+    def forward(ctx, x, align_corners):
+        ctx.align_corners, ctx.dtype = align_corners, x.dtype
+        ctx.channels_last = x.is_contiguous(memory_format=torch.channels_last)
+        return _interpolate2x(x, align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        if ctx.align_corners:
+            h, w = g.shape[2] // 2, g.shape[3] // 2
+            mh = _align_corners_matrix(h, 2 * h, g.device).to(g.dtype)
+            mw = _align_corners_matrix(w, 2 * w, g.device).to(g.dtype)
+            dx = torch.einsum("pw,bchp->bchw", mw, torch.einsum("oh,bcow->bchw", mh, g))
+        else:
+            dx = _stencil_adjoint(_stencil_adjoint(g, 2), 3)
+        fmt = torch.channels_last if ctx.channels_last else torch.contiguous_format
+        return dx.to(ctx.dtype).contiguous(memory_format=fmt), None
 
 
 @functools.lru_cache(maxsize=64)
@@ -413,7 +475,10 @@ def _upsample2x_rows(x: torch.Tensor, align_corners: bool, group, layout: RowLay
     in f32 and rounded once to x's dtype, as ``F.interpolate`` computes the
     whole image. Pad-to-match puts ``diff // 2`` zero rows on top of the
     image (0: a level is at most one row taller than twice the next) and the
-    rest at its bottom, in the last block.
+    rest at its bottom, in the last block. Both backwards are deterministic:
+    the half-pixel one is ``_upsample2x``'s, the ``align_corners`` one the
+    einsums' own, the transposed products in f32 rounded once, as
+    ``_Upsample2x``'s.
     """
     s, n = halo.position(group)
     lo = _own_block(x, layout, level + 1, s)[0] - int(s > 0)
@@ -424,8 +489,7 @@ def _upsample2x_rows(x: torch.Tensor, align_corners: bool, group, layout: RowLay
     first, last = (min(max(r - pad, 0), 2 * src) for r in (start, stop))
     w = x.shape[3]
     if not align_corners:
-        out = F.interpolate(ext, size=(2 * ext.shape[2], 2 * w), mode="bilinear",
-                            align_corners=False)[:, :, first - 2 * lo:last - 2 * lo]
+        out = _upsample2x(ext)[:, :, first - 2 * lo:last - 2 * lo]
     else:
         mh = _align_corners_matrix(src, 2 * src, x.device)[first:last, lo:lo + ext.shape[2]]
         out = torch.einsum("oh,bchw->bcow", mh, ext.float())

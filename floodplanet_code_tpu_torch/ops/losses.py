@@ -41,8 +41,13 @@ def _valid_and_target(logits, target, ignore_index, sample_weight):
 
 
 def _pick(values: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """values[b, target[b, h, w], h, w] for NCHW values."""
-    return values.gather(1, target.unsqueeze(1)).squeeze(1)
+    """values[b, target[b, h, w], h, w] for NCHW values: each class's plane
+    where it is the target, summed over the classes (one term is not zero,
+    so the sum is exact). Its gradient is a select as well: under
+    deterministic algorithms (the fit) a ``gather``'s backward is a sorted
+    scatter (PERF.md)."""
+    classes = torch.arange(values.shape[1], device=values.device).view(1, -1, 1, 1)
+    return torch.where(target.unsqueeze(1) == classes, values, 0.0).sum(1)
 
 
 def cross_entropy_ignore(

@@ -29,33 +29,30 @@ def confusion_from_preds(
 
     ``sample_weight``: optional 0/1 weight broadcastable to target (the
     batch padding mask); weight 0 drops the pixel. ``per_sample``: one
-    matrix per entry of the leading axis, [B, n_classes, n_classes], from
-    the same single ``index_add_`` over (sample, target, pred) cells (the
+    matrix per entry of the leading axis, [B, n_classes, n_classes] (the
     JAX package vmaps the per-matrix function instead).
+
+    Each cell counts its pixels by comparison, in integers, then turns f32:
+    the JAX package's one-hot sums, exact below 2^24 pixels per cell.
+    Under deterministic algorithms (the fit) an ``index_add_`` into nine
+    cells would be a sorted scatter that walks each cell's pixels in turn
+    (PERF.md).
     """
-    valid = torch.ones(target.shape, dtype=torch.float32, device=target.device)
+    counted = torch.ones(target.shape, dtype=torch.bool, device=target.device)
     if sample_weight is not None:
-        valid = valid * torch.broadcast_to(sample_weight, target.shape).float()
+        counted = counted & (torch.broadcast_to(sample_weight, target.shape) != 0)
     n_samples = int(target.shape[0]) if per_sample else 1
-    preds, target, valid = preds.reshape(-1), target.reshape(-1), valid.reshape(-1)
+    preds, target, counted = (t.reshape(n_samples, -1) for t in (preds, target, counted))
     if ignore_index is not None:
-        valid = valid * (target != ignore_index).float()
-    valid = valid * ((target >= 0) & (target < n_classes)).float()
-    t = target.clamp(0, n_classes - 1).long()
-    p = preds.clamp(0, n_classes - 1).long()
-    index = t * n_classes + p
+        counted = counted & (target != ignore_index)
+    counted = counted & (target >= 0) & (target < n_classes)
+    index = target.clamp(0, n_classes - 1).long() * n_classes + preds.clamp(0, n_classes - 1)
+    cells = torch.arange(n_classes * n_classes, device=index.device).view(1, -1, 1)
+    hits = (index.unsqueeze(1) == cells) & counted.unsqueeze(1)
+    counts = hits.sum(dim=-1).to(torch.float32)
     if per_sample:
-        per = target.numel() // max(n_samples, 1)
-        sample = torch.arange(target.numel(), device=target.device) // max(per, 1)
-        index = index + sample * (n_classes * n_classes)
-    # Weighted counts of 0/1 weights are exact integers in f32 up to 2^24
-    # pixels per cell.
-    cells = torch.zeros(n_samples * n_classes * n_classes, dtype=torch.float32,
-                        device=valid.device)
-    cells.index_add_(0, index, valid)
-    if per_sample:
-        return cells.view(n_samples, n_classes, n_classes)
-    return cells.view(n_classes, n_classes)
+        return counts.view(n_samples, n_classes, n_classes)
+    return counts.view(n_classes, n_classes)
 
 
 def confusion_from_logits(

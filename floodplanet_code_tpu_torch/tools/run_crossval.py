@@ -30,7 +30,7 @@ import time
 
 from floodplanet_code_tpu_torch.config import compose
 from floodplanet_code_tpu_torch.train.checkpoint import CheckpointManager
-from floodplanet_code_tpu_torch.train.fit import fit_model
+from floodplanet_code_tpu_torch.train.fit import fit_model, set_cublas_workspace_config
 
 
 def run_fold(
@@ -113,6 +113,7 @@ def run_fold(
 
 
 def main(argv=None):
+    set_cublas_workspace_config()  # before any CUDA work: the fits are deterministic
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--sensor", required=True)
     parser.add_argument("--regions", nargs="+", required=True)

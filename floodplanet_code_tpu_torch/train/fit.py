@@ -17,6 +17,11 @@
   (``valid`` = 0) masked out, on the EMA parameters when the state has them.
 - ``tpu.debug_nans``: the counterpart of ``jax_debug_nans``
   (``raise_on_nan``), scoped to the fit.
+- ``deterministic_algorithms``: the fit runs under
+  ``torch.use_deterministic_algorithms(True)``, so that a run reproduces
+  bit for bit on a card and a resumed fit retrains the gap as the
+  uninterrupted one did, as the JAX fit does by construction. No setting
+  turns it off; an op with no deterministic form raises.
 - More than one device (``tpu.n_devices`` > 1, a ``tpu.multihost`` block
   or a launcher's environment): one process per device
   (``parallel/launch.py``, ``parallel/multihost.py``); each rank loads its
@@ -44,6 +49,7 @@ the same function as ``make_train_step`` and is not carried over.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -448,6 +454,51 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# cuBLAS is deterministic only with one of these workspace settings, read
+# when the process creates its first cuBLAS handle.
+CUBLAS_WORKSPACE_CONFIGS = (":4096:8", ":16:8")
+
+
+def set_cublas_workspace_config() -> None:
+    """Set ``CUBLAS_WORKSPACE_CONFIG`` for deterministic cuBLAS where it is
+    unset; an entry point calls it before its first CUDA work."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIGS[0])
+
+
+def check_cublas_workspace_config(device: torch.device) -> None:
+    """On a card, raise unless ``CUBLAS_WORKSPACE_CONFIG`` is one of
+    ``CUBLAS_WORKSPACE_CONFIGS``: under deterministic algorithms torch
+    would raise at the first cuBLAS call with the same advice."""
+    value = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if device.type == "cuda" and value not in CUBLAS_WORKSPACE_CONFIGS:
+        raise RuntimeError(
+            "deterministic algorithms on a card need CUBLAS_WORKSPACE_CONFIG="
+            f"{CUBLAS_WORKSPACE_CONFIGS[0]} or {CUBLAS_WORKSPACE_CONFIGS[1]} in the "
+            f"environment before the process's first cuBLAS call; it is {value!r}")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Within the block, ``torch.use_deterministic_algorithms(True)``
+    without ``warn_only``: an op with no deterministic form raises, cuDNN
+    picks deterministic algorithms. On exit, also by an exception, the
+    process's earlier setting (and ``warn_only``) is back. Uninitialized
+    memory is not filled: nothing here reads it, and a fill would write
+    every new tensor once more."""
+    from torch.utils import deterministic
+
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        deterministic.fill_uninitialized_memory = fill
+
+
 def fit_model(
     cfg: Config,
     overwrite_exp_dir: str | None = None,
@@ -482,7 +533,18 @@ def fit_model(
     tensor (on every rank at once). Off, the steps carry no check and no
     sync. Unlike ``jax_debug_nans``, which the JAX fit turns on for the rest
     of the process, the setting ends with the fit.
+
+    The fit runs under ``deterministic_algorithms()``: on a card it needs
+    ``CUBLAS_WORKSPACE_CONFIG`` (``set_cublas_workspace_config``; the CLI
+    sets it) and raises without it; an op with no deterministic form
+    raises. The process's own setting is back when the fit returns or
+    raises.
     """
+    with deterministic_algorithms():
+        return _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices)
+
+
+def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices) -> str:
     _check_supported(cfg)
     multihost.initialize_from_env_or_config(cfg, device)
     n_cfg = cfg.select("tpu.n_devices")
@@ -498,6 +560,7 @@ def fit_model(
         if devices:
             device = devices[0]
     device = resolve_device(multihost.rank_device(device))
+    check_cublas_workspace_config(device)
     world = multihost.process_count()
     if n_cfg is not None and int(n_cfg) != world:
         raise ValueError(f"tpu.n_devices={n_cfg} but {world} ranks are in this process group")

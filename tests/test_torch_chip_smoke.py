@@ -31,6 +31,8 @@ count no kernel launch:
 - spatial partitioning, in the same two ranks: the steps on a 1 x 2 data x
   space mesh against one rank, the halo-extended fused conv (its plain
   version here) and the spatial fit;
+- the root entry points: bench_torch.py under both conv_impl values and
+  Batch_infer_torch.sh on what the evaluation phase keeps;
 - scripts/torch_relu_flips.py, which explains the f64 witness's readings.
 """
 
@@ -77,6 +79,7 @@ def test_training_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result["launches"] == {"relu_affine_conv3x3": 0, "shear": 0}
     assert len(result["losses"]) == 4 and len(result["fixed_losses"]) == 10
     assert result["eval_confusion_differ"] <= 1e-3
+    assert len(result["upsample"]["levels"]) == 5  # four bf16 levels and one f32
     assert not (tmp_path / "work").exists()
 
 
@@ -98,6 +101,8 @@ def test_fit_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert set(result["launches"].values()) == {0}
     assert result["epochs"] == [0, 1, 2, 3]
     assert result["steady_train_tiles_per_s"]["cache"] > 0
+    assert result["reproduction"]["pallas_fused"]["runs"] == ["first", "again", "resumed"]
+    assert result["reproduction"]["xla"]["runs"] == ["first", "again"]
     assert not (tmp_path / "work").exists()
 
 
@@ -114,6 +119,27 @@ def test_evaluation_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result["late_fusion"]["max_dprob"] <= chip_smoke.PROB_TOL
     assert result["predict"]["scenes"] == 2 and result["serve_s"]["warm"] > 0
     assert not (tmp_path / "work").exists()
+
+
+def test_entry_points_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 15 on what a small phase 10 keeps: bench_torch.py under both
+    conv_impl values and Batch_infer_torch.sh against batch_infer."""
+    monkeypatch.setattr(chip_smoke, "TILE", 32)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "BASE", 8)
+    monkeypatch.setattr(chip_smoke, "BENCH_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "SCENES", [(100, 120), (70, 90)])
+    monkeypatch.setattr(chip_smoke, "EVAL_CHIPS", 2)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    keep = str(tmp_path / "keep")
+    kept = chip_smoke.run_evaluation("cpu", device="cpu", keep_dir=keep)["kept"]
+    assert len(kept["roots"]) == 2 and all(kept["masks"].values())
+    result = chip_smoke.run_entry_points("cpu", kept, device="cpu")
+    assert result["launches"] == {"xla": 0, "pallas_fused": 0}
+    assert result["bench"]["xla"]["flops"] == result["bench"]["pallas_fused"]["flops"]
+    assert result["batch_infer_script_masks"] == sum(len(v) for v in kept["masks"].values())
+    assert not os.path.exists(keep) and not (tmp_path / "work").exists()
 
 
 def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
@@ -196,6 +222,9 @@ def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert [r["block_rows"] for r in crop["pack_reuse"]] == [7, 5]
     assert len(crop["f64_witness"]["spatial"]) == 2
     assert all(v <= chip_smoke.SP_F64_TOL for w in crop["f64_spatial"] for v in w)
+    # The f32 steps with the one-rank step's ReLU decisions in both.
+    assert crop["matched_relu"]["rel_norm"] <= chip_smoke.SP_MATCHED_TOL
+    assert "matched_relu" not in spatial  # the even crop runs no f64 or matched step
     assert len(spatial["fit"]["losses"]) == 2 and spatial["fit"]["crop"] == 50
     assert not (tmp_path / "work").exists()
 

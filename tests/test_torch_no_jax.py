@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py load no JAX and nothing of the JAX package.
+"""The port, chip_smoke.py and bench_torch.py load no JAX and nothing of
+the JAX package.
 
 Runs the imports in a fresh interpreter: this test process has JAX loaded
 already (tests/conftest.py), so only a subprocess can see what the port
@@ -20,7 +21,8 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 from chip_smoke import (build_all, kernel_parity, kernel_timing, run_slice, shear_parity,
                         shear_timing, run_training, cache_parity, run_fit, run_evaluation,
-                        run_tools, run_data_tools, run_multi_device, main)
+                        run_tools, run_data_tools, run_multi_device, run_entry_points, main)
+import bench_torch
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
