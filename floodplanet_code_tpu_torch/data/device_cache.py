@@ -40,6 +40,7 @@ from floodplanet_code_tpu_torch.data.tiling import CropParams
 from floodplanet_code_tpu_torch.device import resolve_device
 from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
 from floodplanet_code_tpu_torch.parallel.mesh import local_rows
+from floodplanet_code_tpu_torch.utils import trace
 
 
 @dataclass
@@ -100,12 +101,15 @@ def _load_stacks(dataset, paths, shapes, slots, hp, wp, n_channels, device, n_wo
     """The stacks of the scenes at ``slots`` (indices into ``paths``; one
     past the end is a zero / ignore padding slot)."""
 
+    parent = trace.current()
+
     def load(slot: int):
-        h, w = shapes[slot]
-        cp = CropParams(0, 0, h, w, h, w, h, w)
-        chw = dataset._load_crop_norm_image(paths[slot], cp)
-        lbl = dataset._load_label_image(dataset._label_path(paths[slot]), cp)
-        return np.asarray(chw, np.float32), lbl.astype(np.int32)
+        with trace.span("scene_cache.read", parent=parent):
+            h, w = shapes[slot]
+            cp = CropParams(0, 0, h, w, h, w, h, w)
+            chw = dataset._load_crop_norm_image(paths[slot], cp)
+            lbl = dataset._load_label_image(dataset._label_path(paths[slot]), cp)
+            return np.asarray(chw, np.float32), lbl.astype(np.int32)
 
     images = torch.zeros((len(slots), hp, wp, n_channels), dtype=torch.float32,
                          device=device)
@@ -115,10 +119,15 @@ def _load_stacks(dataset, paths, shapes, slots, hp, wp, n_channels, device, n_wo
     # Scenes decode on worker threads (the native reader and numpy release
     # the GIL); each is copied as it comes and turned HWC on the device.
     with ThreadPoolExecutor(max_workers=max(1, n_workers)) as pool:
-        for k, (chw, lbl) in enumerate(pool.map(load, real)):
-            h, w = shapes[real[k]]
-            images[k, :h, :w] = torch.from_numpy(chw).to(device).permute(1, 2, 0)
-            labels[k, :h, :w] = torch.from_numpy(lbl).to(device)
+        loaded = pool.map(load, real)
+        for k, slot in enumerate(real):
+            with trace.span("scene_cache.load"):  # waiting for the workers
+                chw, lbl = next(loaded)
+            with trace.span("scene_cache.copy"):
+                h, w = shapes[slot]
+                images[k, :h, :w] = torch.from_numpy(chw).to(device).permute(1, 2, 0)
+                labels[k, :h, :w] = torch.from_numpy(lbl).to(device)
+                trace.count("h2d_bytes", chw.nbytes + lbl.nbytes)
     return images, labels
 
 
@@ -126,8 +135,10 @@ def _global_norm(dataset, device):
     if dataset.norm_mode != "global":
         return None, None
     params = dataset.global_norm_params[dataset.sensor_key]
-    return (torch.tensor(params["mean"], dtype=torch.float32, device=device),
-            torch.tensor(params["std"], dtype=torch.float32, device=device))
+    mean = torch.tensor(params["mean"], dtype=torch.float32, device=device)
+    std = torch.tensor(params["std"], dtype=torch.float32, device=device)
+    trace.count("h2d_bytes", mean.nbytes + std.nbytes)
+    return mean, std
 
 
 def build_device_cache(
@@ -137,32 +148,33 @@ def build_device_cache(
     up to ``n_workers`` scenes at once, or return None (see the module
     docstring). Raises without a card unless ``device="cpu"``."""
     device = resolve_device(device)
-    layout = _layout(dataset)
-    if layout is None:
-        return None
-    paths, shapes, hp, wp, n_channels = layout
-    nbytes = len(paths) * hp * wp * (n_channels * 4 + 4)
-    if nbytes > max_bytes:
-        print(
-            f"[device cache] the padded scene stacks ({nbytes / 1e9:.2f} GB) "
-            f"exceed tpu.device_data_bytes ({max_bytes / 1e9:.2f} GB): host loader"
+    with trace.span("scene_cache.build"):
+        layout = _layout(dataset)
+        if layout is None:
+            return None
+        paths, shapes, hp, wp, n_channels = layout
+        nbytes = len(paths) * hp * wp * (n_channels * 4 + 4)
+        if nbytes > max_bytes:
+            print(
+                f"[device cache] the padded scene stacks ({nbytes / 1e9:.2f} GB) "
+                f"exceed tpu.device_data_bytes ({max_bytes / 1e9:.2f} GB): host loader"
+            )
+            return None
+        images, labels = _load_stacks(dataset, paths, shapes, range(len(paths)), hp, wp,
+                                      n_channels, device, n_workers)
+        gm, gs = _global_norm(dataset, device)
+        return DeviceSceneCache(
+            images=images,
+            labels=labels,
+            scene_index={path: slot for slot, path in enumerate(paths)},
+            crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
+            ignore_index=int(dataset.ignore_index),
+            norm_mode=dataset.norm_mode,
+            global_mean=gm,
+            global_std=gs,
+            nbytes=int(nbytes),
+            device_nbytes=int(nbytes),
         )
-        return None
-    images, labels = _load_stacks(dataset, paths, shapes, range(len(paths)), hp, wp,
-                                  n_channels, device, n_workers)
-    gm, gs = _global_norm(dataset, device)
-    return DeviceSceneCache(
-        images=images,
-        labels=labels,
-        scene_index={path: slot for slot, path in enumerate(paths)},
-        crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
-        ignore_index=int(dataset.ignore_index),
-        norm_mode=dataset.norm_mode,
-        global_mean=gm,
-        global_std=gs,
-        nbytes=int(nbytes),
-        device_nbytes=int(nbytes),
-    )
 
 
 def build_device_cache_sharded(
@@ -176,37 +188,38 @@ def build_device_cache_sharded(
     device = resolve_device(device)
     if "pod" not in mesh.axis_names:
         return None
-    layout = _layout(dataset)
-    if layout is None:
-        return None
-    paths, shapes, hp, wp, n_channels = layout
-    n_pods = mesh.shape["pod"]
-    per_pod = -(-len(paths) // n_pods)
-    nbytes = per_pod * n_pods * hp * wp * (n_channels * 4 + 4)
-    if nbytes // n_pods > max_bytes_per_device:
-        print(
-            f"[device cache] a pod's share of the padded scene stacks "
-            f"({nbytes // n_pods / 1e9:.2f} GB) exceeds tpu.device_data_bytes "
-            f"({max_bytes_per_device / 1e9:.2f} GB): host loader"
+    with trace.span("scene_cache.build"):
+        layout = _layout(dataset)
+        if layout is None:
+            return None
+        paths, shapes, hp, wp, n_channels = layout
+        n_pods = mesh.shape["pod"]
+        per_pod = -(-len(paths) // n_pods)
+        nbytes = per_pod * n_pods * hp * wp * (n_channels * 4 + 4)
+        if nbytes // n_pods > max_bytes_per_device:
+            print(
+                f"[device cache] a pod's share of the padded scene stacks "
+                f"({nbytes // n_pods / 1e9:.2f} GB) exceeds tpu.device_data_bytes "
+                f"({max_bytes_per_device / 1e9:.2f} GB): host loader"
+            )
+            return None
+        first = mesh.coords["pod"] * per_pod
+        images, labels = _load_stacks(dataset, paths, shapes, range(first, first + per_pod), hp,
+                                      wp, n_channels, device, n_workers)
+        gm, gs = _global_norm(dataset, device)
+        return DeviceSceneCache(
+            images=images,
+            labels=labels,
+            scene_index={path: slot for slot, path in enumerate(paths)},
+            crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
+            ignore_index=int(dataset.ignore_index),
+            norm_mode=dataset.norm_mode,
+            global_mean=gm,
+            global_std=gs,
+            nbytes=int(nbytes),
+            device_nbytes=int(nbytes // n_pods),
+            slot_offset=first,
         )
-        return None
-    first = mesh.coords["pod"] * per_pod
-    images, labels = _load_stacks(dataset, paths, shapes, range(first, first + per_pod), hp,
-                                  wp, n_channels, device, n_workers)
-    gm, gs = _global_norm(dataset, device)
-    return DeviceSceneCache(
-        images=images,
-        labels=labels,
-        scene_index={path: slot for slot, path in enumerate(paths)},
-        crop_hw=(dataset.slice_params.height, dataset.slice_params.width),
-        ignore_index=int(dataset.ignore_index),
-        norm_mode=dataset.norm_mode,
-        global_mean=gm,
-        global_std=gs,
-        nbytes=int(nbytes),
-        device_nbytes=int(nbytes // n_pods),
-        slot_offset=first,
-    )
 
 
 def make_batch_builder(cache: DeviceSceneCache, rows: slice | None = None):
@@ -227,11 +240,16 @@ def make_batch_builder(cache: DeviceSceneCache, rows: slice | None = None):
     n_channels = int(cache.images.shape[-1])
 
     def build(index_rows: np.ndarray) -> dict:
+        with trace.span("cache.gather"):
+            return gather(index_rows)
+
+    def gather(index_rows: np.ndarray) -> dict:
         if rows is not None:
             index_rows = index_rows[rows]
         r = torch.from_numpy(np.ascontiguousarray(index_rows, dtype=np.int32))
         if device.type == "cuda":
             r = r.pin_memory().to(device, non_blocking=True)
+        trace.count("h2d_bytes", r.nbytes)
         scene, h0, w0, h_len, w_len = r.long().unbind(1)
         hi = (h0[:, None] + rows_h)[:, :, None]  # [B, ch, 1]
         wi = (w0[:, None] + cols_w)[:, None, :]  # [B, 1, cw]
@@ -293,6 +311,7 @@ def make_batch_builder_podsharded(cache: DeviceSceneCache, mesh, batch_size: int
         mask = torch.from_numpy(owned)
         if device.type == "cuda":
             mask = mask.pin_memory().to(device, non_blocking=True)
+        trace.count("h2d_bytes", mask.nbytes)
         keys = ("image", "target", "mean", "std")
         parts = [torch.where(mask.view(-1, *[1] * (out[k].dim() - 1)), out[k], 0)
                  .to(torch.float32) for k in keys]

@@ -29,6 +29,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from floodplanet_code_tpu_torch.utils import trace
+
 
 class BatchLoader:
     """Iterable over fixed-shape batches of a FloodPlanetDataset."""
@@ -189,12 +191,14 @@ def device_prefetch(iterator, device, size: int = 2):
     """
     device = torch.device(device)
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    parent = trace.current()  # the producer thread counts for the consumer's span
 
     def put(batch):
         out = {}
         for key, value in batch.items():
             if isinstance(value, np.ndarray):
                 value = torch.from_numpy(value)
+                trace.count("h2d_bytes", value.nbytes, parent)
                 if side is not None:
                     with torch.cuda.stream(side):
                         value = value.pin_memory().to(device, non_blocking=True)

@@ -41,6 +41,7 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 from floodplanet_code_tpu_torch.models import build_model, resolve_compute_dtype, resolve_conv_impl
 from floodplanet_code_tpu_torch.tools.import_jax_params import load_weights
 from floodplanet_code_tpu_torch.train.checkpoint import eval_state_dict, read_checkpoint
+from floodplanet_code_tpu_torch.utils import trace
 
 
 def load_model_for_eval(cfg, weights_path: str, dataset, device="cuda"):
@@ -103,20 +104,21 @@ def build_infer_dataset(cfg, dataset_name: str, split: str, eval_region=None,
     dataset_kwargs = dict(cfg.dataset.get("dataset_kwargs") or {})
     if root_dir is not None:
         dataset_kwargs["root_dir"] = root_dir
-    return build_dataset(
-        dataset_name,
-        split,
-        slice_params,
-        sensor=cfg.dataset.sensor,
-        channels=cfg.dataset.channels,
-        norm_mode=cfg.norm_mode,
-        eval_region=eval_region if eval_region is not None else cfg.eval_region,
-        ignore_index=cfg.ignore_index,
-        seed_num=cfg.select("seed_num"),
-        train_split_pct=cfg.select("train_split_pct", 0.8),
-        output_metadata=True,
-        **dataset_kwargs,
-    )
+    with trace.span("request.dataset"):
+        return build_dataset(
+            dataset_name,
+            split,
+            slice_params,
+            sensor=cfg.dataset.sensor,
+            channels=cfg.dataset.channels,
+            norm_mode=cfg.norm_mode,
+            eval_region=eval_region if eval_region is not None else cfg.eval_region,
+            ignore_index=cfg.ignore_index,
+            seed_num=cfg.select("seed_num"),
+            train_split_pct=cfg.select("train_split_pct", 0.8),
+            output_metadata=True,
+            **dataset_kwargs,
+        )
 
 
 def infer(
@@ -172,14 +174,15 @@ def infer(
         device_data_bytes=int(cfg.select("tpu.device_data_bytes", 6 << 30) or 0),
         predict_step=predict_step,
     ):
-        probs = scene["probabilities"]
-        # argmax -> clip to binary water mask (reference infer.py:179-181):
-        # class-2 predictions clip to water, matching np.clip(pred, 0, 1).
-        mask = np.minimum(probs.argmax(axis=-1), 1).astype(np.uint8)
-        region_dir = os.path.join(save_dir, scene["region"] + "_pred")
-        os.makedirs(region_dir, exist_ok=True)
-        out_path = os.path.join(region_dir, scene["image_name"] + ".tif")
-        tiff.imwrite(out_path, mask * 255, geo_from=scene["image_path"])
+        with trace.span("mask.write"):
+            probs = scene["probabilities"]
+            # argmax -> clip to binary water mask (reference infer.py:179-181):
+            # class-2 predictions clip to water, matching np.clip(pred, 0, 1).
+            mask = np.minimum(probs.argmax(axis=-1), 1).astype(np.uint8)
+            region_dir = os.path.join(save_dir, scene["region"] + "_pred")
+            os.makedirs(region_dir, exist_ok=True)
+            out_path = os.path.join(region_dir, scene["image_name"] + ".tif")
+            tiff.imwrite(out_path, mask * 255, geo_from=scene["image_path"])
         written.append(out_path)
     return written
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -59,6 +58,7 @@ from floodplanet_code_tpu_torch.ops.metrics import (
     torchmetrics_key_names,
 )
 from floodplanet_code_tpu_torch.train.fit import resolve_ignore_index
+from floodplanet_code_tpu_torch.utils import trace
 from floodplanet_code_tpu_torch.utils.image import create_conf_matrix_pred_image, create_gif
 
 
@@ -108,9 +108,10 @@ def _submit_scene_artifacts(pool, scene_dir: str, scene: dict, probs, gt, water_
 
     def timed(fn, *args):
         def run():
-            t0 = time.perf_counter()
-            fn(*args)
-            spent.append(time.perf_counter() - t0)
+            # A root of its own: the task outlives the span that queued it.
+            with trace.span("predict.artifact") as task:
+                fn(*args)
+            spent.append(task.seconds)
         return pool.submit(run)
 
     def png(array, name):
@@ -151,13 +152,16 @@ def predict(
     ``tta``: dihedral test-time augmentation (8 forwards per tile).
     Scene artifacts are written on ``n_workers`` threads beside the
     inference of the next scenes; all are written when ``predict`` returns.
-    ``timing``: a dict that receives where the time went: ``setup_s``
-    (dataset and model), ``loop_s`` (loading, forward and stitching, as
-    the scenes arrive), ``forward_ms`` (the forwards' device time from CUDA
-    events; on a card only), ``metrics_s``, ``artifacts_s`` (host seconds
-    of the writer tasks, summed over threads), ``artifacts_wait_s`` (what
-    the artifacts added to predict's wall: preparing them and waiting for
-    the writers), ``scenes``, ``tiles`` and ``batches``. ``on_scene``: called as
+    ``timing``: a dict that receives where the time went, from the spans
+    of the same names (``utils/trace.py``): ``setup_s`` (dataset and model,
+    ``predict.setup``), ``loop_s`` (loading, forward and stitching, as the
+    scenes arrive, ``predict.loop``), ``forward_ms`` (the forwards' device
+    time from CUDA events; on a card only), ``metrics_s``
+    (``predict.metrics``), ``artifacts_s`` (host seconds of the writer
+    tasks, summed over threads, ``predict.artifact``), ``artifacts_wait_s``
+    (what the artifacts added to predict's wall: preparing them and waiting
+    for the writers, ``predict.artifacts_wait``), ``scenes``, ``tiles`` and
+    ``batches``. ``on_scene``: called as
     ``on_scene(scene, pred_class, confusion)`` for every scene after its
     metrics (the sliding-window result dict, its argmax map and its [C, C]
     confusion matrix). ``devices``: a replica of the model per device, each
@@ -166,54 +170,54 @@ def predict(
     """
     devices = inference_devices(cfg, device, devices)
     device = devices[0]
-    t_start = time.perf_counter()
-    slice_params = generate_image_slice_object(cfg.crop_height, cfg.crop_width, cfg.crop_stride)
-    if eval_region:
-        cfg.eval_region = eval_region
-    dataset_kwargs = cfg.dataset.get("dataset_kwargs") or {}
-    eval_dataset = build_dataset(
-        eval_dataset_name,
-        eval_dataset_split,
-        slice_params,
-        sensor=cfg.dataset.sensor,
-        channels=cfg.dataset.channels,
-        norm_mode=cfg.norm_mode,
-        eval_region=cfg.eval_region,
-        ignore_index=cfg.ignore_index,
-        seed_num=cfg.select("seed_num"),
-        train_split_pct=cfg.select("train_split_pct", 0.8),
-        output_metadata=True,
-        **dataset_kwargs,
-    )
-    n_classes = eval_dataset.n_classes
-    ignore_index = resolve_ignore_index(cfg.ignore_index, n_classes)
-    model = load_model_for_eval(cfg, checkpoint_path, eval_dataset, device)
-    batch_size = resolve_inference_batch_size(cfg, len(devices))
-
-    ckpt_name = os.path.basename(os.path.normpath(checkpoint_path))
-    region_key = (
-        f"split_pct_{cfg.select('train_split_pct', 0.8)}"
-        if cfg.eval_region is None
-        else "-".join(
-            cfg.eval_region
-            if isinstance(cfg.eval_region, (list, tuple))
-            else [cfg.eval_region]
+    with trace.span("predict.setup") as setup:
+        slice_params = generate_image_slice_object(cfg.crop_height, cfg.crop_width, cfg.crop_stride)
+        if eval_region:
+            cfg.eval_region = eval_region
+        dataset_kwargs = cfg.dataset.get("dataset_kwargs") or {}
+        eval_dataset = build_dataset(
+            eval_dataset_name,
+            eval_dataset_split,
+            slice_params,
+            sensor=cfg.dataset.sensor,
+            channels=cfg.dataset.channels,
+            norm_mode=cfg.norm_mode,
+            eval_region=cfg.eval_region,
+            ignore_index=cfg.ignore_index,
+            seed_num=cfg.select("seed_num"),
+            train_split_pct=cfg.select("train_split_pct", 0.8),
+            output_metadata=True,
+            **dataset_kwargs,
         )
-    )
-    pred_dir = os.path.join(experiment_dir, "predictions", eval_dataset_name, region_key,
-                            ckpt_name)
-    os.makedirs(pred_dir, exist_ok=True)
+        n_classes = eval_dataset.n_classes
+        ignore_index = resolve_ignore_index(cfg.ignore_index, n_classes)
+        model = load_model_for_eval(cfg, checkpoint_path, eval_dataset, device)
+        batch_size = resolve_inference_batch_size(cfg, len(devices))
 
-    total_confusion = np.zeros((n_classes, n_classes), np.float32)
-    image_stats_f1, region_stats_f1 = defaultdict(list), defaultdict(list)
-    image_stats_iou, region_stats_iou = defaultdict(list), defaultdict(list)
-    events: list = []
-    spent = {"metrics_s": 0.0, "artifacts_wait_s": 0.0, "loop_s": 0.0}
-    writer_s: list = []  # per writer task, host seconds
-    workers = n_workers or cfg.n_workers
-    pool = ThreadPoolExecutor(max_workers=max(1, workers)) if predict_images else None
-    pending: deque = deque()  # per scene, its writer futures
-    setup_s = time.perf_counter() - t_start
+        ckpt_name = os.path.basename(os.path.normpath(checkpoint_path))
+        region_key = (
+            f"split_pct_{cfg.select('train_split_pct', 0.8)}"
+            if cfg.eval_region is None
+            else "-".join(
+                cfg.eval_region
+                if isinstance(cfg.eval_region, (list, tuple))
+                else [cfg.eval_region]
+            )
+        )
+        pred_dir = os.path.join(experiment_dir, "predictions", eval_dataset_name, region_key,
+                                ckpt_name)
+        os.makedirs(pred_dir, exist_ok=True)
+
+        total_confusion = np.zeros((n_classes, n_classes), np.float32)
+        image_stats_f1, region_stats_f1 = defaultdict(list), defaultdict(list)
+        image_stats_iou, region_stats_iou = defaultdict(list), defaultdict(list)
+        events: list = []
+        spent = {"metrics_s": 0.0, "artifacts_wait_s": 0.0, "loop_s": 0.0}
+        writer_s: list = []  # per writer task, host seconds
+        workers = n_workers or cfg.n_workers
+        pool = ThreadPoolExecutor(max_workers=max(1, workers)) if predict_images else None
+        pending: deque = deque()  # per scene, its writer futures
+    setup_s = setup.seconds
     scenes = sliding_window_predict(
         model,
         eval_dataset,
@@ -236,77 +240,76 @@ def predict(
     n_scenes = 0
     try:
         while True:
-            t0 = time.perf_counter()
-            scene = next(scenes, None)
-            spent["loop_s"] += time.perf_counter() - t0
+            with trace.span("predict.loop") as step:
+                scene = next(scenes, None)
+            spent["loop_s"] += step.seconds
             if scene is None:
                 break
             n_scenes += 1
-            t0 = time.perf_counter()
-            probs = scene["probabilities"]  # [H, W, n_classes]
-            gt = np.rint(scene["gt"]).astype(np.int32)
-            pred_class = probs.argmax(axis=-1)
-            # Binary water mask: classes clipped to {0, 1} as the reference
-            # does (predict.py:305-308): class-2 ("unknown") predictions
-            # count as water.
-            water_pred = np.minimum(pred_class, 1).astype(np.uint8)
-            confusion = confusion_from_preds(
-                torch.from_numpy(pred_class), torch.from_numpy(gt), n_classes, ignore_index
-            ).numpy()
-            total_confusion += confusion
-            if per_crop_stats:
-                # Reference semantics: one score per crop, reports average them.
-                ranked = [compute_metrics(torch.from_numpy(cm), ignore_index=ignore_index)
-                          for cm in scene["crop_confusions"]]
-            else:
-                ranked = [compute_metrics(torch.from_numpy(confusion),
-                                          ignore_index=ignore_index)]
-            for metrics in ranked:
-                f1 = float(metrics["F1Score"])
-                iou = float(metrics["JaccardIndex"])
-                image_stats_f1[scene["image_path"]].append(f1)
-                image_stats_iou[scene["image_path"]].append(iou)
-                region_stats_f1[scene["region"]].append(f1)
-                region_stats_iou[scene["region"]].append(iou)
-            t1 = time.perf_counter()
-            spent["metrics_s"] += t1 - t0
+            with trace.span("predict.metrics") as step:
+                probs = scene["probabilities"]  # [H, W, n_classes]
+                gt = np.rint(scene["gt"]).astype(np.int32)
+                pred_class = probs.argmax(axis=-1)
+                # Binary water mask: classes clipped to {0, 1} as the reference
+                # does (predict.py:305-308): class-2 ("unknown") predictions
+                # count as water.
+                water_pred = np.minimum(pred_class, 1).astype(np.uint8)
+                confusion = confusion_from_preds(
+                    torch.from_numpy(pred_class), torch.from_numpy(gt), n_classes, ignore_index
+                ).numpy()
+                total_confusion += confusion
+                if per_crop_stats:
+                    # Reference semantics: one score per crop, reports average them.
+                    ranked = [compute_metrics(torch.from_numpy(cm), ignore_index=ignore_index)
+                              for cm in scene["crop_confusions"]]
+                else:
+                    ranked = [compute_metrics(torch.from_numpy(confusion),
+                                              ignore_index=ignore_index)]
+                for metrics in ranked:
+                    f1 = float(metrics["F1Score"])
+                    iou = float(metrics["JaccardIndex"])
+                    image_stats_f1[scene["image_path"]].append(f1)
+                    image_stats_iou[scene["image_path"]].append(iou)
+                    region_stats_f1[scene["region"]].append(f1)
+                    region_stats_iou[scene["region"]].append(iou)
+            spent["metrics_s"] += step.seconds
             if on_scene is not None:
                 on_scene(scene, pred_class, confusion)
-                t1 = time.perf_counter()
             if predict_images:
-                scene_dir = os.path.join(pred_dir, "image_predictions", scene["region"],
-                                         scene["image_name"])
-                while len(pending) >= _MAX_PENDING_SCENES:
-                    drain(pending.popleft())
-                pending.append(_submit_scene_artifacts(
-                    pool, scene_dir, scene, probs, gt, water_pred, eval_dataset.to_RGB,
-                    writer_s))
-                spent["artifacts_wait_s"] += time.perf_counter() - t1
-        t1 = time.perf_counter()
-        while pending:
-            drain(pending.popleft())
-        spent["artifacts_wait_s"] += time.perf_counter() - t1
+                with trace.span("predict.artifacts_wait") as step:
+                    scene_dir = os.path.join(pred_dir, "image_predictions", scene["region"],
+                                             scene["image_name"])
+                    while len(pending) >= _MAX_PENDING_SCENES:
+                        drain(pending.popleft())
+                    pending.append(_submit_scene_artifacts(
+                        pool, scene_dir, scene, probs, gt, water_pred, eval_dataset.to_RGB,
+                        writer_s))
+                spent["artifacts_wait_s"] += step.seconds
+        with trace.span("predict.artifacts_wait") as step:
+            while pending:
+                drain(pending.popleft())
+        spent["artifacts_wait_s"] += step.seconds
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
 
     # Aggregate metrics with the reference's exported key names.
-    t0 = time.perf_counter()
-    confusion = torch.from_numpy(total_confusion)
-    metrics = compute_metrics(confusion, "test_", ignore_index=ignore_index)
-    metrics.update(compute_binary_class_metrics(confusion, 1, "test_"))
-    key_map = torchmetrics_key_names("test_")
-    all_metrics = {key_map.get(k, k): float(v) for k, v in metrics.items()}
-    all_metrics["eval_dataset"] = eval_dataset_name
-    with open(os.path.join(pred_dir, "metrics.json"), "w") as handle:
-        json.dump(all_metrics, handle, indent=4)
+    with trace.span("predict.metrics") as step:
+        confusion = torch.from_numpy(total_confusion)
+        metrics = compute_metrics(confusion, "test_", ignore_index=ignore_index)
+        metrics.update(compute_binary_class_metrics(confusion, 1, "test_"))
+        key_map = torchmetrics_key_names("test_")
+        all_metrics = {key_map.get(k, k): float(v) for k, v in metrics.items()}
+        all_metrics["eval_dataset"] = eval_dataset_name
+        with open(os.path.join(pred_dir, "metrics.json"), "w") as handle:
+            json.dump(all_metrics, handle, indent=4)
 
-    save_image_stats(image_stats_f1, pred_dir, "F1-score")
-    save_image_stats(image_stats_iou, pred_dir, "mIoU")
-    if region_stats_iou:
-        save_region_stats(region_stats_f1, pred_dir, "F1-Score")
-        save_region_stats(region_stats_iou, pred_dir, "iou")
-    spent["metrics_s"] += time.perf_counter() - t0
+        save_image_stats(image_stats_f1, pred_dir, "F1-score")
+        save_image_stats(image_stats_iou, pred_dir, "mIoU")
+        if region_stats_iou:
+            save_region_stats(region_stats_f1, pred_dir, "F1-Score")
+            save_region_stats(region_stats_iou, pred_dir, "iou")
+    spent["metrics_s"] += step.seconds
     if timing is not None:
         if events:
             torch.cuda.synchronize(device)

@@ -16,7 +16,17 @@ workflow over HTTP:
             "model_loaded": bool, ...}
     POST /infer   {"root": "/data/scenes/T1", "split": "all",
                    "save_dir": "...", "dataset": "floodplanet"}
-        -> {"written": [mask paths], "root": ..., "seconds": t}
+        -> {"written": [mask paths], "root": ..., "seconds": t,
+            "phases": {"seconds": {span: s}, "counts": {counter: n}}}
+
+``seconds`` is the request's time on the service (from the lock on);
+``phases`` says where it went: the seconds of this request's spans by
+name, summed (``request.dataset``, ``scene_cache.build`` with its
+``scene_cache.load``, ``.read`` on the reading threads and ``.copy``,
+``cache.gather``, ``predict.forward``, ``stitch.add``, ``stitch.fetch``,
+``mask.write``; ``utils/trace.py``), and the bytes it moved to and from
+the device (``h2d_bytes``, ``d2h_bytes``). A span that runs on several
+threads at once can sum past ``seconds``.
 
 Requests are serialized by a lock (one model, one stream of work on the
 card); handler threads share the CUDA context, and ``infer`` enters
@@ -46,7 +56,6 @@ import copy
 import json
 import os
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -60,6 +69,7 @@ from floodplanet_code_tpu_torch.inference.infer import (
     model_key,
 )
 from floodplanet_code_tpu_torch.tools.export_model import ARTIFACT_SUFFIX, load_exported
+from floodplanet_code_tpu_torch.utils import trace
 
 
 class InferenceService:
@@ -128,42 +138,43 @@ class InferenceService:
             self.experiment_dir, "serve_inference", os.path.basename(os.path.normpath(root))
         )
         with self._lock:
-            start = time.perf_counter()
-            run_cfg = copy.deepcopy(self.cfg)
-            # A request names a whole root: no held-out region applies.
-            run_cfg.eval_region = None
-            if self.manifest is not None:
-                # The artifact's batch and tile are frozen: tile and batch
-                # exactly so (tpu.inference_batch_size too, which infer()
-                # prefers over batch_size).
-                shape = self.manifest["inputs"]["image"]["shape"]
-                run_cfg.batch_size = int(shape[0])
-                run_cfg.crop_height, run_cfg.crop_width = int(shape[1]), int(shape[2])
-                run_cfg.tpu["inference_batch_size"] = int(shape[0])
-                # An exported program is a single-device program: the
-                # artifact pins serving to one device (JAX serve.py:157-166).
-                run_cfg.tpu["n_devices"] = 1
-            # The probe is infer()'s own dataset (non-overlapping tiles over
-            # this root); it also decides the model's shape.
-            probe = build_infer_dataset(run_cfg, dataset_name, split, root_dir=root)
-            warm = self._warm_model(probe)
-            artifact = self.artifact_path is not None
-            written = infer(
-                run_cfg,
-                self.checkpoint_path,
-                dataset_name,
-                split,
-                save_dir,
-                tta=self.tta,
-                warm=None if artifact else warm,
-                predict_step=warm if artifact else None,
-                dataset=probe,
-                device=self.device,
-            )
+            with trace.span("serve.request") as request:
+                run_cfg = copy.deepcopy(self.cfg)
+                # A request names a whole root: no held-out region applies.
+                run_cfg.eval_region = None
+                if self.manifest is not None:
+                    # The artifact's batch and tile are frozen: tile and batch
+                    # exactly so (tpu.inference_batch_size too, which infer()
+                    # prefers over batch_size).
+                    shape = self.manifest["inputs"]["image"]["shape"]
+                    run_cfg.batch_size = int(shape[0])
+                    run_cfg.crop_height, run_cfg.crop_width = int(shape[1]), int(shape[2])
+                    run_cfg.tpu["inference_batch_size"] = int(shape[0])
+                    # An exported program is a single-device program: the
+                    # artifact pins serving to one device (JAX serve.py:157-166).
+                    run_cfg.tpu["n_devices"] = 1
+                # The probe is infer()'s own dataset (non-overlapping tiles over
+                # this root); it also decides the model's shape.
+                probe = build_infer_dataset(run_cfg, dataset_name, split, root_dir=root)
+                warm = self._warm_model(probe)
+                artifact = self.artifact_path is not None
+                written = infer(
+                    run_cfg,
+                    self.checkpoint_path,
+                    dataset_name,
+                    split,
+                    save_dir,
+                    tta=self.tta,
+                    warm=None if artifact else warm,
+                    predict_step=warm if artifact else None,
+                    dataset=probe,
+                    device=self.device,
+                )
             return {
                 "root": root,
                 "written": written,
-                "seconds": round(time.perf_counter() - start, 3),
+                "seconds": round(request.seconds, 3),
+                "phases": trace.summary(request),
             }
 
     @property

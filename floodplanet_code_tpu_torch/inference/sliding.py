@@ -44,6 +44,7 @@ from floodplanet_code_tpu_torch.inference.stitcher import (
 )
 from floodplanet_code_tpu_torch.models.water_seg import AUX_FEATURE_KEYS
 from floodplanet_code_tpu_torch.ops.metrics import confusion_from_preds
+from floodplanet_code_tpu_torch.utils import trace
 
 
 def _d4_elements(square: bool):
@@ -260,6 +261,11 @@ def sliding_window_predict(
     exported program, tools/export_model.py) instead of
     ``make_predict_step(model, tta)``; ``model`` and ``tta`` are then not
     read. Raises without a card unless ``device="cpu"``.
+
+    Spans (``utils/trace.py``): ``predict.forward`` (launching a batch's
+    forward), ``stitch.add`` (the batch's grouping, masks and canvas adds)
+    and ``stitch.fetch`` (a finished scene's canvas to the host, waiting for
+    the queued work); the scene cache and its gathers have their own.
     """
     device = resolve_device(device)
     if predict_step is None:
@@ -295,82 +301,96 @@ def sliding_window_predict(
         )
         batches = device_prefetch(_host_flags(loader), device, size=2)
     for batch in batches:
-        if timed:
-            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            events[0].record()
-        probs = predict_step(_to_model_layout(batch))
-        if timed:
-            events[1].record()
-            forward_events.append(events)
-        metadata = batch["metadata"]
-        batch_valid = batch["valid"]
+        with trace.span("predict.forward"):  # the launches; the device runs on
+            if timed:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            probs = predict_step(_to_model_layout(batch))
+            if timed:
+                events[1].record()
+                forward_events.append(events)
+        with trace.span("stitch.add"):
+            metadata = batch["metadata"]
+            batch_valid = batch["valid"]
 
-        # Group the batch by scene for the canvas adds.
-        tile_h, tile_w = int(probs.shape[1]), int(probs.shape[2])
-        by_scene: dict[str, list[int]] = {}
-        for i, md in enumerate(metadata):
-            if not batch_valid[i] or md is None:
-                continue
-            key = f"{md['region_name']}/{_image_name(md['image_path'])}"
-            by_scene.setdefault(key, []).append(i)
+            # Group the batch by scene for the canvas adds.
+            tile_h, tile_w = int(probs.shape[1]), int(probs.shape[2])
+            by_scene: dict[str, list[int]] = {}
+            for i, md in enumerate(metadata):
+                if not batch_valid[i] or md is None:
+                    continue
+                key = f"{md['region_name']}/{_image_name(md['image_path'])}"
+                by_scene.setdefault(key, []).append(i)
 
-        unnorm = None
-        if collect_extras:
-            # mean/std are [B, 1, 1, C]: broadcast over [B, H, W, C].
-            unnorm = batch["image"] * batch["std"] + batch["mean"]
-        for key, idxs in by_scene.items():
-            md0 = metadata[idxs[0]]
-            cp0 = md0["crop_params"]
-            scene_info.setdefault(
-                key,
-                {
-                    "region": md0["region_name"],
-                    "image_name": _image_name(md0["image_path"]),
-                    "image_path": md0["image_path"],
-                    "og_height": cp0.og_height,
-                    "og_width": cp0.og_width,
-                },
-            )
-            crops = [metadata[i]["crop_params"] for i in idxs]
-            offsets = np.array([[cp.h0, cp.w0] for cp in crops], np.int64)
-            valid_mask = make_tile_valid_mask(
-                [cp.height for cp in crops], [cp.width for cp in crops], tile_h, tile_w
-            )
-            sel = torch.as_tensor(idxs, device=probs.device)
-            tiles = probs.index_select(0, sel)
-            pred_stitcher.add_batch(
-                key, cp0.og_height, cp0.og_width, tiles, offsets, valid_mask,
-                geo_from=md0["image_path"],
-            )
-            if per_crop_ignore_index is not None:
-                mask = torch.from_numpy(valid_mask).to(device, non_blocking=True)
-                crop_cms.setdefault(key, []).append(confusion_from_preds(
-                    tiles.argmax(dim=-1), batch["target"].index_select(0, sel),
-                    n_classes, per_crop_ignore_index, mask, per_sample=True,
-                ))
+            unnorm = None
             if collect_extras:
-                if "rgb" not in extra_stitchers:
-                    extra_stitchers["rgb"] = DeviceStitcher(int(unnorm.shape[-1]), device=device)
-                    extra_stitchers["gt"] = DeviceStitcher(1, device=device)
-                extra_stitchers["rgb"].add_batch(
-                    key, cp0.og_height, cp0.og_width, unnorm.index_select(0, sel),
-                    offsets, valid_mask,
+                # mean/std are [B, 1, 1, C]: broadcast over [B, H, W, C].
+                unnorm = batch["image"] * batch["std"] + batch["mean"]
+            finished = []
+            for key, idxs in by_scene.items():
+                md0 = metadata[idxs[0]]
+                cp0 = md0["crop_params"]
+                scene_info.setdefault(
+                    key,
+                    {
+                        "region": md0["region_name"],
+                        "image_name": _image_name(md0["image_path"]),
+                        "image_path": md0["image_path"],
+                        "og_height": cp0.og_height,
+                        "og_width": cp0.og_width,
+                    },
                 )
-                extra_stitchers["gt"].add_batch(
-                    key, cp0.og_height, cp0.og_width,
-                    batch["target"].index_select(0, sel).float()[..., None], offsets,
-                    valid_mask,
+                crops = [metadata[i]["crop_params"] for i in idxs]
+                offsets = np.array([[cp.h0, cp.w0] for cp in crops], np.int64)
+                valid_mask = make_tile_valid_mask(
+                    [cp.height for cp in crops], [cp.width for cp in crops], tile_h, tile_w
                 )
-            tiles_remaining[key] -= len(idxs)
-            if tiles_remaining[key] == 0:
+                sel = torch.as_tensor(idxs, device=probs.device)
+                trace.count("h2d_bytes", sel.nbytes)
+                tiles = probs.index_select(0, sel)
+                pred_stitcher.add_batch(
+                    key, cp0.og_height, cp0.og_width, tiles, offsets, valid_mask,
+                    geo_from=md0["image_path"],
+                )
+                if per_crop_ignore_index is not None:
+                    mask = torch.from_numpy(valid_mask)
+                    trace.count("h2d_bytes", mask.nbytes)
+                    mask = mask.to(device, non_blocking=True)
+                    crop_cms.setdefault(key, []).append(confusion_from_preds(
+                        tiles.argmax(dim=-1), batch["target"].index_select(0, sel),
+                        n_classes, per_crop_ignore_index, mask, per_sample=True,
+                    ))
+                if collect_extras:
+                    if "rgb" not in extra_stitchers:
+                        extra_stitchers["rgb"] = DeviceStitcher(int(unnorm.shape[-1]),
+                                                                device=device)
+                        extra_stitchers["gt"] = DeviceStitcher(1, device=device)
+                    extra_stitchers["rgb"].add_batch(
+                        key, cp0.og_height, cp0.og_width, unnorm.index_select(0, sel),
+                        offsets, valid_mask,
+                    )
+                    extra_stitchers["gt"].add_batch(
+                        key, cp0.og_height, cp0.og_width,
+                        batch["target"].index_select(0, sel).float()[..., None], offsets,
+                        valid_mask,
+                    )
+                tiles_remaining[key] -= len(idxs)
+                if tiles_remaining[key] == 0:
+                    finished.append(key)
+        # Yielded outside the spans: the caller's work is not the stitch's.
+        for key in finished:
+            with trace.span("stitch.fetch"):
                 result = dict(scene_info.pop(key))
                 result["probabilities"] = pred_stitcher.pop_combined(key)
                 if per_crop_ignore_index is not None:
-                    result["crop_confusions"] = torch.cat(crop_cms.pop(key)).cpu().numpy()
+                    confusions = torch.cat(crop_cms.pop(key))
+                    trace.count("d2h_bytes", confusions.nbytes)
+                    result["crop_confusions"] = confusions.cpu().numpy()
                 if collect_extras:
                     result["rgb"] = extra_stitchers["rgb"].pop_combined(key)
                     result["gt"] = extra_stitchers["gt"].pop_combined(key)[:, :, 0]
-                yield result
+            yield result
 
 
 def _host_flags(loader) -> Iterator[dict]:

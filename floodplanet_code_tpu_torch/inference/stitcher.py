@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from floodplanet_code_tpu_torch.geo import tiff
+from floodplanet_code_tpu_torch.utils import trace
 
 
 class ImageStitcher:
@@ -222,13 +223,13 @@ class DeviceStitcher:
         if geo_from is not None:
             self.geo_sources.setdefault(name, geo_from)
         if name in self._host:
-            self._host[name].add_batch(
-                tiles.float().cpu().numpy(), np.asarray(offsets), np.asarray(tile_valid)
-            )
+            host_tiles = tiles.float().cpu().numpy()
+            trace.count("d2h_bytes", host_tiles.nbytes)
+            self._host[name].add_batch(host_tiles, np.asarray(offsets), np.asarray(tile_valid))
             return
-        valid = torch.from_numpy(np.asarray(tile_valid, np.float32)).to(
-            self.device, non_blocking=True
-        )
+        valid = torch.from_numpy(np.asarray(tile_valid, np.float32))
+        trace.count("h2d_bytes", valid.nbytes)
+        valid = valid.to(self.device, non_blocking=True)
         stitch_batch(
             self._canvas[name], self._weights[name], tiles.float(), offsets, valid
         )
@@ -241,6 +242,7 @@ class DeviceStitcher:
         if name in self._host:
             return self._host[name].combined()
         full = finalize_canvas(self._canvas[name][:h, :w], self._weights[name][:h, :w])
+        trace.count("d2h_bytes", full.nbytes)
         return full.cpu().numpy()
 
     def pop_combined(self, name: str) -> np.ndarray:

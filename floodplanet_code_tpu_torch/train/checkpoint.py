@@ -31,13 +31,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
 from floodplanet_code_tpu_torch.parallel import multihost
 from floodplanet_code_tpu_torch.train.state import TrainState
+from floodplanet_code_tpu_torch.utils import trace
 
 MONITOR_KEY = "val_MulticlassJaccardIndex"
 
@@ -197,44 +197,46 @@ class CheckpointManager:
 
     def _write(self, payload: dict, ready, path: str, epoch: int, metrics: dict,
                metric: float, name: str, kind: str) -> None:
-        start = time.time()
-        if ready is not None:
-            ready.synchronize()
-        # Written beside the entry and renamed into place: a torn write is
-        # never seen as a checkpoint.
-        tmp = path + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(_to_host(payload), os.path.join(tmp, CHECKPOINT_FILE))
-        if kind == "slim":
-            with open(os.path.join(tmp, SLIM_MARKER), "w") as handle:
-                json.dump({"layout": sorted(k for k, v in payload.items() if v is not None)},
-                          handle)
-        with open(os.path.join(tmp, "metrics.json"), "w") as handle:
-            json.dump({k: _scalar(v) for k, v in metrics.items()} | {"epoch": epoch},
-                      handle, indent=2)
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.rename(tmp, path)
+        # On the writer thread: a root span of its own.
+        with trace.span("checkpoint.write") as write:
+            if ready is not None:
+                ready.synchronize()
+            # Written beside the entry and renamed into place: a torn write is
+            # never seen as a checkpoint.
+            tmp = path + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(_to_host(payload), os.path.join(tmp, CHECKPOINT_FILE))
+            if kind == "slim":
+                with open(os.path.join(tmp, SLIM_MARKER), "w") as handle:
+                    json.dump({"layout": sorted(k for k, v in payload.items()
+                                                if v is not None)}, handle)
+            with open(os.path.join(tmp, "metrics.json"), "w") as handle:
+                json.dump({k: _scalar(v) for k, v in metrics.items()} | {"epoch": epoch},
+                          handle, indent=2)
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
 
-        entries = [e for e in self._index["entries"] if e["name"] != name]
-        entries.append({"name": name, "metric": metric, "epoch": epoch, "kind": kind})
-        entries.sort(key=lambda e: e["metric"], reverse=True)
-        keep = entries[: self.save_top_k]
-        # Resume restores a FULL state (slim entries carry no optimizer
-        # state), so `latest` tracks the newest full entry.
-        full = [e for e in entries if e.get("kind", "full") == "full"]
-        latest = max(full, key=lambda e: e["epoch"]) if full else None
-        keep_names = {e["name"] for e in keep}
-        if latest is not None:
-            keep_names.add(latest["name"])
-        for entry in entries[self.save_top_k:]:
-            if entry["name"] not in keep_names:
-                shutil.rmtree(os.path.join(self.ckpt_dir, entry["name"]), ignore_errors=True)
-        self._index["entries"] = [e for e in entries if e["name"] in keep_names]
-        self._index["latest"] = latest["name"] if latest else None
-        self._write_index()
-        self.background_write_seconds += time.time() - start
+            entries = [e for e in self._index["entries"] if e["name"] != name]
+            entries.append({"name": name, "metric": metric, "epoch": epoch, "kind": kind})
+            entries.sort(key=lambda e: e["metric"], reverse=True)
+            keep = entries[: self.save_top_k]
+            # Resume restores a FULL state (slim entries carry no optimizer
+            # state), so `latest` tracks the newest full entry.
+            full = [e for e in entries if e.get("kind", "full") == "full"]
+            latest = max(full, key=lambda e: e["epoch"]) if full else None
+            keep_names = {e["name"] for e in keep}
+            if latest is not None:
+                keep_names.add(latest["name"])
+            for entry in entries[self.save_top_k:]:
+                if entry["name"] not in keep_names:
+                    shutil.rmtree(os.path.join(self.ckpt_dir, entry["name"]),
+                                  ignore_errors=True)
+            self._index["entries"] = [e for e in entries if e["name"] in keep_names]
+            self._index["latest"] = latest["name"] if latest else None
+            self._write_index()
+        self.background_write_seconds += write.seconds
 
     @property
     def best_model_path(self) -> str | None:

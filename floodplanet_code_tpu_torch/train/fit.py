@@ -55,7 +55,6 @@ import datetime
 import itertools
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -123,6 +122,7 @@ from floodplanet_code_tpu_torch.train.state import (
     ema_decay_at,
     init_weights,
 )
+from floodplanet_code_tpu_torch.utils import trace
 
 
 def resolve_ignore_index(ignore_index: int, n_classes: int) -> int:
@@ -194,19 +194,20 @@ def make_augment_step(transform_params: TransformParams, ignore_index: int, mesh
         return None
 
     def augment_step(generator: torch.Generator, batch: dict) -> dict:
-        if mesh is None:
-            image, target = augment_batch(
-                generator, batch["image"], batch["target"], transform_params, ignore_index
-            )
-        else:
-            local = batch["image"].shape[0]
-            n = local * n_batch_shards(mesh)
-            rows = local_rows(mesh, n)
-            draws = draw_augmentation(generator, n, transform_params, batch["image"].device)
-            draws = type(draws)(*(getattr(draws, f.name)[rows]
-                                  for f in dataclasses.fields(draws)))
-            image, target = apply_augmentation(batch["image"], batch["target"], draws,
-                                               transform_params, ignore_index)
+        with trace.span("train.augment"):
+            if mesh is None:
+                image, target = augment_batch(
+                    generator, batch["image"], batch["target"], transform_params, ignore_index
+                )
+            else:
+                local = batch["image"].shape[0]
+                n = local * n_batch_shards(mesh)
+                rows = local_rows(mesh, n)
+                draws = draw_augmentation(generator, n, transform_params, batch["image"].device)
+                draws = type(draws)(*(getattr(draws, f.name)[rows]
+                                      for f in dataclasses.fields(draws)))
+                image, target = apply_augmentation(batch["image"], batch["target"], draws,
+                                                   transform_params, ignore_index)
         out = dict(batch)
         out["image"] = image
         out["target"] = target
@@ -249,36 +250,42 @@ def make_train_step(
     loss_of = make_loss_fn(loss_cfg, ignore_index, group)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
-        image, target = batch["image"], batch["target"]
-        if fuse_augmentation and transform_params.any_active:
-            image, target = augment_batch(
-                generator, image, target, transform_params, ignore_index
-            )
-        model.train()
-        logits = model(_model_batch(batch, image))
-        loss = loss_of(logits, target)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if group is not None:
-            _all_reduce_grads(model, group)
-        lr = state.schedule(state.step)
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        if state.ema_params is not None:
-            d = ema_decay_at(state.step, ema_decay) if ema_warmup else torch.tensor(
-                ema_decay, dtype=torch.float32
-            )
-            # One non-blocking copy: a blocking one per parameter would wait
-            # for the stream each time.
-            d = d.to(loss.device, non_blocking=True)
-            with torch.no_grad():
-                for name, p in model.named_parameters():
-                    e = state.ema_params[name]
-                    e.copy_(d * e + (1.0 - d) * p)
-        with torch.no_grad():
-            confusion = confusion_from_logits(logits, target, ignore_index, group=group)
+        # The spans time the host's launches of each part; the device runs on.
+        with trace.span("train.step"):
+            image, target = batch["image"], batch["target"]
+            if fuse_augmentation and transform_params.any_active:
+                with trace.span("train.augment"):
+                    image, target = augment_batch(
+                        generator, image, target, transform_params, ignore_index
+                    )
+            with trace.span("train.forward"):
+                model.train()
+                logits = model(_model_batch(batch, image))
+                loss = loss_of(logits, target)
+            with trace.span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                if group is not None:
+                    _all_reduce_grads(model, group)
+            with trace.span("train.optimizer"):
+                lr = state.schedule(state.step)
+                for param_group in state.optimizer.param_groups:
+                    param_group["lr"] = lr
+                state.optimizer.step()
+                state.step += 1
+                if state.ema_params is not None:
+                    d = ema_decay_at(state.step, ema_decay) if ema_warmup else torch.tensor(
+                        ema_decay, dtype=torch.float32
+                    )
+                    # One non-blocking copy: a blocking one per parameter
+                    # would wait for the stream each time.
+                    d = d.to(loss.device, non_blocking=True)
+                    with torch.no_grad():
+                        for name, p in model.named_parameters():
+                            e = state.ema_params[name]
+                            e.copy_(d * e + (1.0 - d) * p)
+            with trace.span("train.metrics"), torch.no_grad():
+                confusion = confusion_from_logits(logits, target, ignore_index, group=group)
         return state, {"loss": loss.detach(), "confusion": confusion}
 
     return train_step
@@ -540,11 +547,11 @@ def fit_model(
     raises. The process's own setting is back when the fit returns or
     raises.
     """
-    with deterministic_algorithms():
-        return _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices)
+    with deterministic_algorithms(), trace.span("fit") as fit:
+        return _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices, fit)
 
 
-def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices) -> str:
+def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices, fit) -> str:
     _check_supported(cfg)
     multihost.initialize_from_env_or_config(cfg, device)
     n_cfg = cfg.select("tpu.n_devices")
@@ -577,9 +584,8 @@ def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices) -> str:
         )
     if device.type == "cuda" and collectives.active():
         torch.cuda.set_device(device)  # the rank's card (rank_device gives it an index)
-    # Wall-clock decomposition of the whole fit, written to
+    # Wall-clock decomposition of the whole fit from its spans, written to
     # <exp_dir>/timing.json with the JAX package's keys.
-    fit_start = time.time()
     timing_epochs: list[dict] = []
 
     exp_dir = overwrite_exp_dir or default_experiment_dir(cfg)
@@ -778,128 +784,134 @@ def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices) -> str:
     limit_val = cfg.select("limit_val_batches")
     global_step = start_epoch * max(1, len(train_loader))
 
-    setup_wall = time.time() - fit_start
+    setup_wall = fit.seconds
     first_step_wall = None
     for epoch in range(start_epoch, cfg.n_epochs):
         # ---- train -------------------------------------------------------
         generator = _epoch_generator(seed, epoch, device)
-        epoch_start = time.time()
-        profiler = None
-        if profiler_mode == "advanced" and epoch == start_epoch and coordinator:
-            from torch.profiler import ProfilerActivity, profile
+        with trace.span("fit.epoch") as epoch_span:
+            with trace.span("fit.train") as train_span:
+                profiler = None
+                if profiler_mode == "advanced" and epoch == start_epoch and coordinator:
+                    from torch.profiler import ProfilerActivity, profile
 
-            activities = [ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            profiler = profile(activities=activities)
-            profiler.start()
+                    activities = [ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(ProfilerActivity.CUDA)
+                    profiler = profile(activities=activities)
+                    profiler.start()
 
-        train_confusion = torch.zeros((n_classes, n_classes), device=device)
-        n_train_batches = 0
-        losses = []
-        for batch in itertools.islice(train_batches(epoch), limit_train):
-            if augment_step is not None:
-                batch = augment_step(generator, batch)
-            state, logs = train_step(state, own_rows(batch))
-            if debug_nans:
-                raise_on_nan(f"after train step {n_train_batches} of epoch {epoch}",
-                             _train_step_tensors(model, logs["loss"]), group)
-            train_confusion += logs["confusion"]
-            losses.append(logs["loss"])
-            if first_step_wall is None:
-                # The first step of the fit, synchronized so that later
-                # steps' queued work does not hide in its reading.
+                train_confusion = torch.zeros((n_classes, n_classes), device=device)
+                n_train_batches = 0
+                losses = []
+                for batch in itertools.islice(train_batches(epoch), limit_train):
+                    if augment_step is not None:
+                        batch = augment_step(generator, batch)
+                    state, logs = train_step(state, own_rows(batch))
+                    if debug_nans:
+                        raise_on_nan(f"after train step {n_train_batches} of epoch {epoch}",
+                                     _train_step_tensors(model, logs["loss"]), group)
+                    train_confusion += logs["confusion"]
+                    losses.append(logs["loss"])
+                    if first_step_wall is None:
+                        # The first step of the fit, synchronized so that later
+                        # steps' queued work does not hide in its reading.
+                        _sync(device)
+                        first_step_wall = epoch_span.seconds
+                    n_train_batches += 1
+                    global_step += 1
+                    if global_step % 10 == 0 and coordinator:
+                        with trace.span("fit.log_sync"):  # .item() waits for the step
+                            writer.add_scalar("train_loss", logs["loss"].item(), global_step)
+                            step_metrics = compute_metrics(logs["confusion"], "train_",
+                                                           ignore_index)
+                            for key, value in step_metrics.items():
+                                writer.add_scalar(key, value.item(), global_step)
+                    if log_image_iter and global_step % log_image_iter == 0 and coordinator:
+                        # The coordinator's rows, at full height; the panel's
+                        # forward has no collective, so the other ranks skip it.
+                        with trace.span("fit.image_panel"):
+                            logits = logits_of(batch["image"])
+                            log_image_panel(
+                                writer,
+                                f"train_s{global_step}",
+                                batch["image"][0].float().cpu().numpy(),
+                                batch["mean"][0].cpu().numpy(),
+                                batch["std"][0].cpu().numpy(),
+                                logits[0].cpu().numpy(),
+                                batch["target"][0].cpu().numpy(),
+                                train_dataset.to_RGB,
+                                global_step,
+                            )
+
+                if profiler is not None:
+                    profiler.stop()
+                    profile_dir = cfg.select("tpu.profile_dir") or os.path.join(exp_dir,
+                                                                               "profile")
+                    os.makedirs(profile_dir, exist_ok=True)
+                    path = os.path.join(profile_dir, f"epoch{epoch}.json")
+                    profiler.export_chrome_trace(path)
+                    trace.add_to_chrome_trace(path, trace.spans_under(epoch_span))
+
                 _sync(device)
-                first_step_wall = time.time() - epoch_start
-            n_train_batches += 1
-            global_step += 1
-            if global_step % 10 == 0 and coordinator:
-                writer.add_scalar("train_loss", logs["loss"].item(), global_step)
-                step_metrics = compute_metrics(logs["confusion"], "train_", ignore_index)
-                for key, value in step_metrics.items():
-                    writer.add_scalar(key, value.item(), global_step)
-            if log_image_iter and global_step % log_image_iter == 0 and coordinator:
-                # The coordinator's rows, at full height; the panel's
-                # forward has no collective, so the other ranks skip it.
-                logits = logits_of(batch["image"])
-                log_image_panel(
-                    writer,
-                    f"train_s{global_step}",
-                    batch["image"][0].float().cpu().numpy(),
-                    batch["mean"][0].cpu().numpy(),
-                    batch["std"][0].cpu().numpy(),
-                    logits[0].cpu().numpy(),
-                    batch["target"][0].cpu().numpy(),
-                    train_dataset.to_RGB,
-                    global_step,
-                )
-
-        if profiler is not None:
-            profiler.stop()
-            profile_dir = cfg.select("tpu.profile_dir") or os.path.join(exp_dir, "profile")
-            os.makedirs(profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.json"))
-
-        _sync(device)
-        train_time = time.time() - epoch_start
-        train_metrics = compute_metrics(train_confusion, "train_", ignore_index)
-        train_metrics["train_loss"] = (
-            torch.stack(losses).mean() if losses else torch.tensor(0.0)
-        )
-
-        # ---- validation --------------------------------------------------
-        eval_start = time.time()
-        val_confusion = torch.zeros((n_classes, n_classes), device=device)
-        val_losses = []
-        for k, batch in enumerate(itertools.islice(valid_batches(), limit_val)):
-            logs = eval_step(state, own_rows(batch))
-            if debug_nans:
-                raise_on_nan(f"after validation step {k} of epoch {epoch}",
-                             [("the loss", logs["loss"]), ("the logits", logs["logits"])],
-                             group)
-            val_confusion += logs["confusion"]
-            val_losses.append(logs["loss"])
-        _sync(device)
-        eval_wall = time.time() - eval_start
-        val_metrics = compute_metrics(val_confusion, "val_", ignore_index)
-        val_metrics.update(compute_binary_class_metrics(val_confusion, 1, "val_"))
-        val_metrics["valid_loss"] = (
-            torch.stack(val_losses).mean() if val_losses else torch.tensor(0.0)
-        )
-
-        # Renamed to the reference's torchmetrics keys for the monitor.
-        key_map = torchmetrics_key_names("val_")
-        monitored = {key_map.get(k, k): float(v) for k, v in val_metrics.items()}
-        monitored.update({k: float(v) for k, v in train_metrics.items()})
-        for key, value in monitored.items():
-            writer.add_scalar(key, value, global_step)
-
-        tiles_per_sec = n_train_batches * batch_size / train_time if train_time > 0 else 0.0
-        writer.add_scalar("train_tiles_per_sec", tiles_per_sec, global_step)
-        if profiler_mode == "simple":
-            print(f"[profiler] epoch {epoch}: {train_time:.1f}s train, "
-                  f"{tiles_per_sec:.1f} tiles/s")
-        if coordinator:
-            print(
-                f"epoch {epoch}: loss {monitored['train_loss']:.4f} "
-                f"val_IoU {monitored.get(MONITOR_KEY, 0.0):.4f} "
-                f"water_IoU {monitored.get('val_water_IoU', 0.0):.4f} "
-                f"({tiles_per_sec:.1f} tiles/s)"
+            train_time = train_span.seconds
+            train_metrics = compute_metrics(train_confusion, "train_", ignore_index)
+            train_metrics["train_loss"] = (
+                torch.stack(losses).mean() if losses else torch.tensor(0.0)
             )
-        ckpt_start = time.time()
-        # force on the final epoch: a completed run leaves a latest
-        # checkpoint, so a re-invoked fit is a no-op.
-        manager.save(state, epoch, monitored, force=(epoch == cfg.n_epochs - 1))
-        # Epoch-end barrier: no rank decides the next save, or exits,
-        # before rank 0's write.
-        multihost.sync(f"epoch_{epoch}")
-        ckpt_wall = time.time() - ckpt_start
+
+            # ---- validation ----------------------------------------------
+            with trace.span("fit.validate") as eval_span:
+                val_confusion = torch.zeros((n_classes, n_classes), device=device)
+                val_losses = []
+                for k, batch in enumerate(itertools.islice(valid_batches(), limit_val)):
+                    logs = eval_step(state, own_rows(batch))
+                    if debug_nans:
+                        raise_on_nan(f"after validation step {k} of epoch {epoch}",
+                                     [("the loss", logs["loss"]),
+                                      ("the logits", logs["logits"])], group)
+                    val_confusion += logs["confusion"]
+                    val_losses.append(logs["loss"])
+                _sync(device)
+            val_metrics = compute_metrics(val_confusion, "val_", ignore_index)
+            val_metrics.update(compute_binary_class_metrics(val_confusion, 1, "val_"))
+            val_metrics["valid_loss"] = (
+                torch.stack(val_losses).mean() if val_losses else torch.tensor(0.0)
+            )
+
+            # Renamed to the reference's torchmetrics keys for the monitor.
+            key_map = torchmetrics_key_names("val_")
+            monitored = {key_map.get(k, k): float(v) for k, v in val_metrics.items()}
+            monitored.update({k: float(v) for k, v in train_metrics.items()})
+            for key, value in monitored.items():
+                writer.add_scalar(key, value, global_step)
+
+            tiles_per_sec = n_train_batches * batch_size / train_time if train_time > 0 else 0.0
+            writer.add_scalar("train_tiles_per_sec", tiles_per_sec, global_step)
+            if coordinator:
+                print(
+                    f"epoch {epoch}: loss {monitored['train_loss']:.4f} "
+                    f"val_IoU {monitored.get(MONITOR_KEY, 0.0):.4f} "
+                    f"water_IoU {monitored.get('val_water_IoU', 0.0):.4f} "
+                    f"({tiles_per_sec:.1f} tiles/s)"
+                )
+            with trace.span("fit.checkpoint") as ckpt_span:
+                # force on the final epoch: a completed run leaves a latest
+                # checkpoint, so a re-invoked fit is a no-op.
+                manager.save(state, epoch, monitored, force=(epoch == cfg.n_epochs - 1))
+                # Epoch-end barrier: no rank decides the next save, or exits,
+                # before rank 0's write.
+                multihost.sync(f"epoch_{epoch}")
+        if profiler_mode == "simple":
+            totals = sorted(trace.summary(epoch_span)["seconds"].items(), key=lambda kv: -kv[1])
+            print(f"[profiler] epoch {epoch}: "
+                  + ", ".join(f"{name} {seconds:.2f}s" for name, seconds in totals))
         timing_epochs.append({
             "epoch": epoch,
             "train_wall": round(train_time, 3),
-            "eval_wall": round(eval_wall, 3),
-            "ckpt_wall": round(ckpt_wall, 3),
-            "epoch_wall": round(time.time() - epoch_start, 3),
+            "eval_wall": round(eval_span.seconds, 3),
+            "ckpt_wall": round(ckpt_span.seconds, 3),
+            "epoch_wall": round(epoch_span.seconds, 3),
             "n_train_batches": n_train_batches,
             "tiles_per_sec": round(tiles_per_sec, 2),
         })
@@ -907,19 +919,18 @@ def _fit_model(cfg, overwrite_exp_dir, device, init_state_dict, devices) -> str:
     writer.close()
     # Drain the in-flight write: its tail is charged to checkpointing, and
     # callers reading best_model_path get a finished directory.
-    ckpt_drain_start = time.time()
-    manager.wait_until_finished()
-    ckpt_drain_wall = time.time() - ckpt_drain_start
+    with trace.span("fit.checkpoint_drain") as drain:
+        manager.wait_until_finished()
     if timing_epochs and coordinator:
-        _write_timing(exp_dir, fit_start, setup_wall, first_step_wall, timing_epochs,
-                      batch_size, manager.background_write_seconds, ckpt_drain_wall)
+        _write_timing(exp_dir, fit.seconds, setup_wall, first_step_wall, timing_epochs,
+                      batch_size, manager.background_write_seconds, drain.seconds)
     return manager.best_model_path or ""
 
 
-def _write_timing(exp_dir, fit_start, setup_wall, first_step_wall, timing_epochs,
+def _write_timing(exp_dir, fit_wall, setup_wall, first_step_wall, timing_epochs,
                   batch_size, ckpt_bg_wall, ckpt_drain_wall) -> None:
-    """<exp_dir>/timing.json with the JAX package's keys (fit.py:884-937)."""
-    fit_wall = time.time() - fit_start
+    """<exp_dir>/timing.json with the JAX package's keys (fit.py:884-937),
+    from the fit's spans: ``fit_wall`` the ``fit`` span's seconds so far."""
     n_tiles = int(sum(e["n_train_batches"] for e in timing_epochs) * batch_size)
     train_sum = sum(e["train_wall"] for e in timing_epochs)
     eval_sum = sum(e["eval_wall"] for e in timing_epochs)

@@ -254,6 +254,12 @@ def test_cli_writes_an_experiment(synthetic_csdap_root, tmp_path, monkeypatch):
     assert os.path.isfile(exp / "hydra" / "config.yaml")
     assert os.listdir(exp / "tensorboard_logs")
     assert os.listdir(exp / "profile")
+    # profiler: advanced writes the program's spans into the torch trace
+    with open(exp / "profile" / "epoch0.json") as handle:
+        events = json.load(handle)["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "program_span"}
+    assert {"train.step", "train.forward", "train.backward", "train.optimizer",
+            "fit.image_panel", "cache.gather"} <= spans
     with open(exp / "timing.json") as handle:
         timing = json.load(handle)
     assert timing["n_epochs_run"] == 1 and timing["train_tiles"] == 24

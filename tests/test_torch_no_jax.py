@@ -60,6 +60,7 @@ def test_port_modules_are_all_listed():
         "floodplanet_code_tpu_torch.train.logging",
         "floodplanet_code_tpu_torch.data.device_cache",
         "floodplanet_code_tpu_torch.utils.image",
+        "floodplanet_code_tpu_torch.utils.trace",
         "floodplanet_code_tpu_torch.fit",
         "floodplanet_code_tpu_torch.data.sen1floods11",
         "floodplanet_code_tpu_torch.inference.predict",

@@ -129,6 +129,43 @@ def test_daemon_serves_infers_masks(setup):
         thread.join(timeout=30)
 
 
+REQUEST_SPANS = {"request.dataset", "scene_cache.build", "scene_cache.load", "scene_cache.read",
+                 "scene_cache.copy", "cache.gather", "predict.forward", "stitch.add",
+                 "stitch.fetch", "mask.write"}
+
+
+def test_request_spans_phases_and_bytes(setup):
+    """One request on a root of one 70x90 scene: every span of the request
+    path under one root, the reply's phases, and the bytes each copy moves."""
+    from floodplanet_code_tpu_torch.utils import trace
+
+    service = serve.InferenceService(checkpoint_path=setup["entry"], device="cpu")
+    root = setup["roots"][0]
+    reply = service.infer_root(root, save_dir=str(setup["base"] / "traced"))
+    request = next(r for r in reversed(trace.records()) if r.name == "serve.request")
+    under = trace.spans_under(request)
+    assert {r.name for r in under} == REQUEST_SPANS
+    assert {r.root for r in under} == {request.id}
+    assert len({r.thread for r in under}) > 1  # the scene reads run on worker threads
+    phases = reply["phases"]
+    assert phases["seconds"].keys() == REQUEST_SPANS
+    assert reply["seconds"] == round(request.seconds, 3)
+    assert sum(phases["seconds"][k] for k in ("request.dataset", "scene_cache.build",
+                                             "predict.forward", "stitch.add", "stitch.fetch",
+                                             "mask.write")) <= request.seconds
+
+    cfg = load_experiment_config(setup["exp"])
+    cfg.eval_region = None
+    ds = build_infer_dataset(cfg, "floodplanet", "all", root_dir=root)
+    n, batch, tile, h, w = len(ds), 8, 32, 70, 90
+    assert len({e.image_path for e in ds.dataset}) == 1
+    stacks = 4 * h * w * 4 + h * w * 4  # f32 bands and int32 labels of the scene
+    rows = -(-n // batch) * batch * 5 * 4  # the gathers' int32 index rows
+    stitch = n * 8 + n * tile * tile * 4  # int64 tile selections, f32 validity masks
+    assert phases["counts"] == {"h2d_bytes": stacks + rows + stitch,
+                                "d2h_bytes": h * w * 3 * 4}  # the f32 canvas of 3 classes
+
+
 def test_batch_infer_keeps_one_model(setup, monkeypatch):
     loads = []
     load = infer_mod.load_model_for_eval
