@@ -11,9 +11,10 @@ Run from the repository root, with no arguments:
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build: the two CUDA kernels (nvcc, sm_90a: the fused conv and the row
-   shear) and the native TIFF library, from this checkout's sources, in
-   parallel;
+2. build: the three CUDA kernel libraries (nvcc, sm_90a: the fused conv,
+   the row shear and train-mode BatchNorm-ReLU) and the native TIFF
+   library, from this checkout's sources, in parallel; ptxas must report no
+   spills in any BatchNorm-ReLU kernel;
 3. kernel parity: the fused conv against its plain PyTorch version on the
    card at the nine DoubleConv shapes of the full-width UNet (batch 2), an
    odd shape, channel tails, b > 0 cases and the edges of the bf16
@@ -23,6 +24,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    materialized z, per level at batch 16 (CUDA events), beside the bound
    (its fraction and TFLOP/s); the kernel's batch-16 output is held to the
    plain chain's, and the kernel must beat the plain chain at every level;
+4b. BatchNorm-ReLU parity and timing (``bn_relu_parity``,
+   ``bn_relu_timing``): the train-mode kernels against
+   their plain version at every distinct
+   BatchNorm shape of the benchmark's two configurations (batch 10, 300^2
+   early fusion and 512^2 late fusion) and at ragged tails, in bf16, f32 and
+   f64 (statistics, sums, z and dx within their tolerances; the same bits
+   from the plain version's statistics; two launches the same bits; a
+   one-rank group's two stages); then one train step's 18 calls per
+   configuration against the plain version and F.batch_norm + F.relu;
 5. the slice (serving): synthetic PlanetScope scenes written with the
    port's TIFF writer, the full-width early-fusion UNet (base 64, 4 bands,
    3 classes, bf16, conv_impl=pallas_fused) with seeded flax-layout weights
@@ -104,14 +114,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``infer``'s; reference-schema checkpoints, early and late fusion,
    through ``import_torch_checkpoint`` and ``infer``, fused vs cuDNN as in
    the slice; exact conv launches;
-12. data tools and options, with no hand-written kernel on any path (0
-   launches of either): ``compute_norm_params`` over the serving scenes,
+12. data tools and options, with neither the conv nor the shear kernel on
+   any path (0 launches of either; train-mode BatchNorm runs its kernels,
+   counted): ``compute_norm_params`` over the serving scenes,
    the scene cache against the loader with ``norm_mode=global`` and fits
    through both; a fit at DATA_CROP non-square crops rotated by
    map_coordinates, one such augment step on the card against the CPU,
    and map_coordinates against the roll shear at 512^2; ``fused_bn=false``
    (under pallas_fused, the fused pair off) against ``fused_bn=true`` on the
-   same weights, the bf16 eval forward and an f32 train step; fits with
+   same weights, the bf16 eval forward and an f32 train step (the
+   element-wise gradient bound with the true step's ReLU and pool
+   decisions applied, BN_FORCED_SHARE); fits with
    ``tpu.debug_nans`` off, on and off again (the losses equal bit for
    bit: the fit is deterministic) and on a poisoned
    batch (``FloatingPointError`` at the step); ``visualize_transforms`` on
@@ -187,9 +200,11 @@ Exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
+import functools
 import json
 import math
 import os
@@ -244,7 +259,7 @@ from floodplanet_code_tpu_torch.inference.sliding import (
 )
 from floodplanet_code_tpu_torch.models import build_model
 from floodplanet_code_tpu_torch.ops import LAUNCHES
-from floodplanet_code_tpu_torch.ops import conv_fused, rotate
+from floodplanet_code_tpu_torch.ops import batchnorm, conv_fused, rotate
 from floodplanet_code_tpu_torch.models.example_transformer import ExampleTileTransformer
 from floodplanet_code_tpu_torch.tools import (
     compute_feature_stats,
@@ -321,6 +336,10 @@ F32_BATCH = 2  # the f32 fused-vs-plain step
 GRAD_TOL = 1e-2
 GRAD_MAX_TOL = 3e-2
 WITNESS_RATIO = 3.0
+# Phase 12's fused_bn=false step with the fused_bn=true step's ReLU and pool
+# decisions: the share of its own decisions that they may override (f32
+# rounding decides a few per million differently; a fault, a large share).
+BN_FORCED_SHARE = 1e-4
 # Shear parity: [B, H = W] at the augmentation shape and the reference's
 # 300^2 crop; residual angles through rotate_flip_batch's a, b.
 SHEAR_SHAPES = [(8, 512), (2, 300)]
@@ -441,6 +460,19 @@ AUG_TOL = 1e-5  # map_coordinates on the card vs the CPU, absolute, images in [0
 # f64), of the largest element: f32 rounding; one bf16 rounding of the f32
 # sum, at most 2^-8 of a value.
 UPSAMPLE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
+# Train-mode BatchNorm + ReLU kernels: the two benchmark configurations'
+# UNets ((model, bands, tile) at batch BN_BATCH) and ragged tails (C off
+# the 8-channel vector, rows under one slab); tolerances: z and dx of
+# max|plain| (the dtype's rounding), the statistics and the backward's sums
+# of their sum of magnitudes (summation order).
+BN_CONFIGS = {"ef": ("ef_model", {"ms_image": 4}, 300), "lf": ("lf_model", {"ms_image": 2}, 512)}
+BN_BATCH = 10
+BN_TAILS = [("tail C 5", (2, 5, 3, 7)), ("tail C 12", (3, 12, 5, 4)),
+            ("tail C 100", (2, 100, 9, 11)), ("tail 1 row", (1, 64, 1, 1)),
+            ("tail C 3 1x1", (1, 3, 1, 1))]
+BN_EPS = 1e-5
+BN_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5, torch.float64: 1e-12}
+BN_STAT_TOL = {torch.bfloat16: 1e-5, torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def log(msg: str) -> None:
@@ -480,9 +512,13 @@ def build_all() -> None:
         except BaseException as exc:  # re-raised below, in the main thread
             results[name] = exc
 
+    # batchnorm.cu builds one library per type and load width.
+    bn = {f"batchnorm {str(t).split('.')[1]} vec={v}": functools.partial(batchnorm.build, t, v)
+          for t in (torch.bfloat16, torch.float32, torch.float64) for v in (1, 0)}
     threads = [
         threading.Thread(target=run, args=("conv_fused", conv_fused.build)),
         threading.Thread(target=run, args=("rotate", rotate.build)),
+        *(threading.Thread(target=run, args=item) for item in bn.items()),
         threading.Thread(target=run, args=("tiffio", tiff.load_library)),
     ]
     for t in threads:
@@ -492,7 +528,7 @@ def build_all() -> None:
     for value in results.values():
         if isinstance(value, BaseException):
             raise value
-    for name in ("conv_fused", "rotate"):
+    for name in ("conv_fused", "rotate", *bn):
         path, report = results[name]
         log(f"built {os.path.relpath(path, REPO)}")
         if not report:
@@ -505,19 +541,28 @@ def build_all() -> None:
 
 def check_no_spills(report: str) -> None:
     """Raise if ptxas reports spills, or serialized wgmmas, in a bf16 conv
-    kernel (``Function properties for <name>`` is followed by its
-    ``bytes spill stores`` line)."""
+    kernel or any BatchNorm-ReLU kernel (``Function properties for <name>``
+    is followed by its ``bytes spill stores`` line)."""
     kernel = None
     for line in report.splitlines():
         if "Function properties for" in line:
             kernel = line.split("for", 1)[1].strip()
-        elif "spill stores" in line and kernel and "conv_bf16" in kernel:
+        elif "spill stores" in line and kernel and ("conv_bf16" in kernel or "bnrelu" in kernel):
             stores, loads = (int(line.split(" bytes spill stores")[0].split(",")[-1]),
                              int(line.split(" bytes spill loads")[0].split(",")[-1]))
             if stores or loads:
                 raise AssertionError(f"ptxas spills in {kernel}: {line.strip()}")
         if "C7512" in line or "C7515" in line or "C7508" in line:
             raise AssertionError(f"ptxas: {line.strip()}")
+
+
+def check_bn_relu_launches(phase: str, counts: dict, on_card: bool, trains: bool) -> None:
+    """The train-mode BatchNorm-ReLU kernels' launches on a phase's main
+    paths (``counts``: path -> launches): some on the card where the phase
+    trains, none on the CPU (the plain version) or where it only
+    evaluates (eval mode bypasses them)."""
+    if (sum(counts.values()) > 0) != (on_card and trains):
+        raise AssertionError(f"{phase}: {batchnorm.KERNEL} launches {counts}")
 
 
 # -- 3./4. the kernel -------------------------------------------------------
@@ -635,6 +680,278 @@ def kernel_timing(card: str) -> list[dict]:
     slower = [r["level"] for r in rows if not r["ms"] < r["plain_ms"]]
     if slower:
         raise AssertionError(f"the kernel is not faster than the plain chain at {slower}")
+    return rows
+
+
+# -- 4b. train-mode BatchNorm + ReLU kernels ---------------------------------
+
+
+def bn_relu_shapes(model: str, in_channels: dict, tile: int, batch: int,
+                   base: int = 64) -> list[tuple]:
+    """[N, C, H, W] of every train-mode BatchNormReLU input of the UNet, in
+    call order, from one train forward on the meta device (which runs the
+    plain version)."""
+    from floodplanet_code_tpu_torch.models.unet import BatchNormReLU
+
+    shapes = []
+    net = build_model(model, in_channels, 3, dtype=torch.bfloat16, device="cpu",
+                      base_feat_channels=base).to("meta").train()
+    for m in net.modules():
+        if isinstance(m, BatchNormReLU):
+            m.register_forward_pre_hook(lambda mod, args: shapes.append(tuple(args[0].shape)))
+    x = torch.empty(batch, sum(in_channels.values()), tile, tile, dtype=torch.bfloat16,
+                    device="meta")
+    net({"image": x, "ms_image": x})
+    return shapes
+
+
+def bn_relu_cases() -> list[tuple]:
+    """(name, [N, C, H, W]) of the parity cases: each distinct BatchNorm
+    shape of both benchmark configurations, then ragged tails."""
+    cases = []
+    for cfg, (model, channels, tile) in BN_CONFIGS.items():
+        for shape in dict.fromkeys(bn_relu_shapes(model, channels, tile, BN_BATCH)):
+            cases.append((f"{cfg} {shape[1]}x{shape[2]}^2", shape))
+    return cases + BN_TAILS
+
+
+def bn_inputs(gen, shape, dtype, device):
+    """x with per-channel means in [-2, 2) and spreads in [0.5, 2), scale,
+    bias (in the statistics' type) and dz, channels_last."""
+    n, c, h, w = shape
+    acc = torch.promote_types(dtype, torch.float32)
+
+    def rand(*size):
+        return torch.rand(*size, generator=gen, device=device, dtype=acc)
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=device, dtype=acc)
+
+    mu, sd = rand(c) * 4 - 2, rand(c) * 1.5 + 0.5
+    cl = torch.channels_last
+    x = (randn(n, c, h, w) * sd.view(1, -1, 1, 1) + mu.view(1, -1, 1, 1)).to(dtype)
+    dz = randn(n, c, h, w).to(dtype).contiguous(memory_format=cl)
+    return x.contiguous(memory_format=cl), rand(c) + 0.5, randn(c) * 0.5, dz
+
+
+def bn_plain(x, scale, bias, dz):
+    """The plain version on x's device: (z, mean, var, m2, inv, a, b, dx,
+    dscale, dbias, sum_dz, sum_dz_xhat); the same statistics and sums taken
+    in f64 over the same terms (``exact_*``: the value any order of
+    summation approximates); and the magnitudes that bound a reordered
+    sum's error: mean|x|, E[x^2], sum|dzm|, sum|dzm*xhat|."""
+    xr = x.detach().clone().requires_grad_(True)
+    sr, br = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    z, mean, var = batchnorm._BNReLUTrain.apply(xr, sr, br, BN_EPS, None)
+    dx, dscale, dbias = torch.autograd.grad(z, (xr, sr, br), dz)
+    xf = batchnorm._acc(x)
+    m2 = (xf * xf).mean(dim=batchnorm._AXES)
+    inv = torch.rsqrt(var + BN_EPS)
+    a, b = (t.view(-1) for t in batchnorm._affine(x, scale, bias, mean, inv))
+    dzm = batchnorm._acc(torch.where(x * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1) > 0, dz, 0))
+    xhat = (xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+    axes = batchnorm._AXES
+    exact_mean, exact_m2 = xf.double().mean(dim=axes), (xf * xf).double().mean(dim=axes)
+    return dict(z=z.detach(), mean=mean, var=var, m2=m2, inv=inv, a=a, b=b, dx=dx,
+                dscale=dscale, dbias=dbias, sum_dz=dzm.sum(dim=axes),
+                sum_dz_xhat=(dzm * xhat).sum(dim=axes), exact_mean=exact_mean,
+                exact_var=torch.clamp_min(exact_m2 - exact_mean * exact_mean, 0.0),
+                mag_mean=xf.abs().mean(dim=axes), mag_var=m2,
+                **bn_exact_sums(x, dz, a, b, mean, inv))
+
+
+def bn_exact_sums(x, dz, a, b, mean, inv) -> dict:
+    """The backward's two sums over the terms of the forward state (a, b,
+    mean, inv) in f64, and their sums of magnitudes: the ReLU mask is that
+    state's, so a kernel's sums are held to sums over the same mask."""
+    channel = (lambda t: t.view(1, -1, 1, 1))
+    dzm = batchnorm._acc(torch.where(x * channel(a) + channel(b) > 0, dz, 0))
+    terms = dzm * (batchnorm._acc(x) - channel(mean)) * channel(inv)
+    axes = batchnorm._AXES
+    return dict(exact_sum_dz=dzm.double().sum(dim=axes),
+                exact_sum_dz_xhat=terms.double().sum(dim=axes),
+                mag_sum_dz=dzm.abs().sum(dim=axes), mag_sum_dz_xhat=terms.abs().sum(dim=axes))
+
+
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def bn_relu_parity(device="cuda") -> dict:
+    """The kernels against the plain version at every case and dtype: the
+    statistics and the backward's sums within ``BN_STAT_TOL`` of their sum
+    of magnitudes from the f64 sums of the same terms (only the order of
+    summation differs; the backward's terms under the kernel forward's own
+    ReLU mask, since a last-bit change of f32 a, b moves the mask of an
+    element within rounding of zero; the plain version's own reading is
+    logged as ``plain``); z and dx within ``BN_TOL`` of max|plain| (dx
+    from the plain backward of the kernel's own forward: one mask); z, var,
+    inv, a, b and dx the same bits when the apply stages get the plain
+    version's statistics and sums; two launches the same bits; and a
+    one-rank group (no collective) through stage 1 and 2. On the CPU (the
+    rehearsal) the plain version stands in for the kernels. Returns the
+    worst readings per dtype."""
+    on_card = device != "cpu"
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst: dict = {}
+    for name, shape in bn_relu_cases():
+        for dtype in BN_TOL:
+            x, scale, bias, dz = bn_inputs(gen, shape, dtype, device)
+            p = bn_plain(x, scale, bias, dz)
+            if on_card:
+                z, mean, var, inv, a, b = batchnorm.forward_cuda(x, scale, bias, BN_EPS)
+                dx, sum_dz, sum_dz_xhat = batchnorm.backward_cuda(x, dz, a, b, mean, inv, scale)
+                again = batchnorm.forward_cuda(x, scale, bias, BN_EPS)
+                dx2, _, _ = batchnorm.backward_cuda(x, dz, a, b, mean, inv, scale)
+                zs, _, vs, ivs, as_, bs = batchnorm.forward_apply_cuda(
+                    x, scale, bias, BN_EPS, p["mean"], p["m2"])
+                dxs, _ = batchnorm.backward_apply_cuda(
+                    x, dz, p["a"], p["b"], p["mean"], p["inv"], scale,
+                    torch.stack([p["sum_dz"], p["sum_dz_xhat"]]))
+                group = batchnorm.forward_cuda(x, scale, bias, BN_EPS, group="one rank")
+                dxg, _, _ = batchnorm.backward_cuda(x, dz, a, b, mean, inv, scale, "one rank")
+            else:
+                z, mean, var = (p[k] for k in ("z", "mean", "var"))
+                inv, a, b, dx = p["inv"], p["a"], p["b"], p["dx"]
+                sum_dz, sum_dz_xhat = p["sum_dz"], p["sum_dz_xhat"]
+                again, dx2 = (z, mean, var, inv, a, b), dx
+                zs, vs, ivs, as_, bs, dxs = z, var, inv, a, b, dx
+                group, dxg = again, dx
+            if on_card:
+                torch.cuda.synchronize()
+            # dx of the plain backward from the kernel's forward: one mask.
+            dx_same = bn_plain_backward(x, dz, scale, bias, mean, inv)
+            stat_tol, tol = BN_STAT_TOL[dtype], BN_TOL[dtype]
+            got = {"mean": mean, "var": var, "sum_dz": sum_dz, "sum_dz_xhat": sum_dz_xhat}
+            ref = dict(p, **bn_exact_sums(x, dz, a, b, mean, inv))  # the kernel's own mask
+            stats = {k: _rel_to(v, ref["exact_" + k], ref["mag_" + k]) for k, v in got.items()}
+            stats["group_mean"] = _rel_to(group[1], p["exact_mean"], p["mag_mean"])
+            stats["group_var"] = _rel_to(group[2], p["exact_var"], p["mag_var"])
+            plain = max(_rel_to(p[k], p["exact_" + k], p["mag_" + k]) for k in got)
+            ends = {"z": _rel_to(z, p["z"]), "dx": _rel_to(dx, dx_same),
+                    "group_z": _rel_to(group[0], p["z"]), "group_dx": _rel_to(dxg, dx_same)}
+            bits = {"z": _bits(zs, p["z"]), "var": _bits(vs, p["var"]),
+                    "inv": _bits(ivs, p["inv"]), "a": _bits(as_, p["a"]), "b": _bits(bs, p["b"]),
+                    "dx": _bits(dxs, p["dx"]),
+                    "repeat_z": _bits(again[0], z), "repeat_dx": _bits(dx2, dx)}
+            ok = (all(v <= stat_tol for v in stats.values()) and all(v <= tol for v in ends.values())
+                  and all(bits.values()))
+            log(f"  bn_relu {name:18s} {str(dtype)[6:]:8s} stats "
+                f"{max(stats.values()):.2e} (plain {plain:.2e}) ends {max(ends.values()):.2e} "
+                f"bits {'all' if all(bits.values()) else [k for k, v in bits.items() if not v]} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"bn_relu kernels disagree with the plain version: {name} "
+                                     f"{dtype}: stats {stats}, ends {ends}, bits {bits}")
+            w = worst.setdefault(str(dtype)[6:], {"stats": 0.0, "plain_stats": 0.0, "ends": 0.0})
+            w["stats"] = max(w["stats"], *stats.values())
+            w["plain_stats"] = max(w["plain_stats"], plain)
+            w["ends"] = max(w["ends"], *ends.values())
+            del x, dz, p
+    return worst
+
+
+def bn_plain_backward(x, dz, scale, bias, mean, inv):
+    """The plain version's backward (``_BNReLUTrain.backward``'s lines, no
+    group) from the given statistics: dx in x's dtype."""
+    a, b = batchnorm._affine(x, scale, bias, mean, inv)
+    dzm = batchnorm._acc(torch.where(x * a + b > 0, dz, 0))
+    xhat = (batchnorm._acc(x) - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    sum_dz, sum_dz_xhat = dzm.sum(dim=batchnorm._AXES), (dzm * xhat).sum(dim=batchnorm._AXES)
+    g = (scale * inv).view(1, -1, 1, 1)
+    dx = g * (dzm - (sum_dz / n).view(1, -1, 1, 1) - xhat * (sum_dz_xhat / n).view(1, -1, 1, 1))
+    return dx.to(x.dtype)
+
+
+def _rel_to(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor | None = None) -> float:
+    """max|got - want| over max|scale| (default: max|want|)."""
+    err = (got.double() - want.double()).abs().max().item()
+    ref = (want if scale is None else scale).double().abs().max().item()
+    return err / max(ref, 1e-300) if math.isfinite(err) else math.inf
+
+
+def bn_relu_timing(card: str) -> dict:
+    """Per configuration, one train step's 18 BatchNorm-ReLU calls at
+    batch 10 in bf16, forward and backward through autograd: the kernels,
+    the plain version, and ``F.batch_norm(training=True)`` + ``F.relu`` (the
+    library yardstick, which the port never calls). ``ms``, ``plain_ms``,
+    ``library_ms``: device time of every kernel the step's calls launch
+    (torch.profiler; the kernels' trace must hold all their launches);
+    ``wrapper_ms``: the kernels' step on CUDA events, the host's pace
+    included; beside the least time, 10 bytes an element (x in, z out; x
+    and dz in, dx out) at the card's bandwidth; ``shapes``: the kernels'
+    time per call at each distinct shape, on CUDA events. Run it in a
+    process of its own (``bn_relu_timing_apart``)."""
+    peak_bytes = peaks(torch.cuda.get_device_name(0))[1]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for cfg, (model, channels, tile) in BN_CONFIGS.items():
+        counts = collections.Counter(bn_relu_shapes(model, channels, tile, BN_BATCH))
+        inputs = []
+        for shape in counts:
+            x, scale, bias, dz = bn_inputs(gen, shape, torch.bfloat16, "cuda")
+            inputs.append((x.requires_grad_(True), scale.requires_grad_(True),
+                           bias.requires_grad_(True), dz))
+
+        def call(fn, x, scale, bias, dz):
+            torch.autograd.grad(fn(x, scale, bias), (x, scale, bias), dz)
+
+        variants = {
+            "ms": lambda x, s, b: batchnorm._BNReLUTrainCUDA.apply(x, s, b, BN_EPS, None)[0],
+            "plain_ms": lambda x, s, b: batchnorm._BNReLUTrain.apply(x, s, b, BN_EPS, None)[0],
+            "library_ms": lambda x, s, b: F.relu(F.batch_norm(x, None, None, s, b, True, 0.1,
+                                                              BN_EPS)),
+        }
+        row = {"shapes": {}}
+        for key, fn in variants.items():
+            def step(fn=fn):
+                for args, count in zip(inputs, counts.values()):
+                    for _ in range(count):
+                        call(fn, *args)
+
+            traced = trace_kernels(step)
+            row[key] = sum(t for _, t, _ in traced)
+            if key == "ms":
+                launches = sum(n for k, _, n in traced if "bnrelu" in k)
+                if launches != 6 * sum(counts.values()):
+                    raise AssertionError(f"the trace holds {launches} of the step's "
+                                         f"{6 * sum(counts.values())} kernel launches")
+                row["wrapper_ms"] = cuda_ms(step, 5)
+                for args, shape in zip(inputs, counts):
+                    row["shapes"][str(shape)] = cuda_ms(lambda: call(fn, *args), 10)
+        elements = sum(math.prod(shape) * n for shape, n in counts.items())
+        row["bound_ms"] = 10.0 * elements / peak_bytes * 1e3
+        row["bound_frac"] = row["bound_ms"] / row["ms"]
+        row["elements"] = elements
+        out[cfg] = row
+        log(f"  bn_relu time {cfg} step (18 calls, fwd+bwd, bf16): kernels {row['ms']:.3f} ms "
+            f"device ({row['wrapper_ms']:.3f} ms on events), plain {row['plain_ms']:.3f} ms, "
+            f"F.batch_norm+relu {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_frac']:.1%}); per shape {row['shapes']} [{card}]")
+        del inputs
+    return out
+
+
+def bn_relu_timing_apart(card: str) -> dict:
+    """``bn_relu_timing`` in a process of its own, whose profiler sessions
+    are then its first: a session late in a process drops kernel events
+    (it read half the calls' time), and one early in this process makes
+    ``shear_timing``'s later exact launch count fail. Its lines are
+    logged here."""
+    torch.cuda.empty_cache()
+    code = ("import json, chip_smoke as c; "
+            "print('BN_ROWS', json.dumps(c.bn_relu_timing(c.card_line())), flush=True)")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    rows = None
+    for line in run.stdout.splitlines():
+        if line.startswith("BN_ROWS "):
+            rows = json.loads(line[len("BN_ROWS "):])
+        else:
+            log(line)
+    if run.returncode != 0 or rows is None:
+        raise AssertionError(f"bn_relu_timing exited {run.returncode}:\n{run.stderr[-4000:]}")
     return rows
 
 
@@ -775,11 +1092,15 @@ def run_slice(card: str, device="cuda") -> dict:
         sync(device)
         times["overlap fused"] = time.perf_counter() - t0
     launches = LAUNCHES[conv_fused.KERNEL]  # the main path ends here
-    log(f"  launches of {conv_fused.KERNEL}: {launches} for {forwards} forwards")
+    bn_launches = LAUNCHES[batchnorm.KERNEL]
+    log(f"  launches of {conv_fused.KERNEL}: {launches} for {forwards} forwards; of "
+        f"{batchnorm.KERNEL}: {bn_launches}")
     # 9 per forward on the card; a CPU tensor runs the plain version.
     expected = 9 * forwards if torch.device(device).type == "cuda" else 0
     if launches != expected:
         raise AssertionError(f"expected {expected} kernel launches, got {launches}")
+    check_bn_relu_launches("serving", {"requests": bn_launches},
+                           torch.device(device).type == "cuda", False)
 
     for name, probs in fused.items():
         if not np.isfinite(probs).all():
@@ -842,7 +1163,8 @@ def run_slice(card: str, device="cuda") -> dict:
         log(f"  tiles/s {name}: {rate:.1f} (host clock, loading and stitching "
             f"included) [{card}]")
     shutil.rmtree(WORK, ignore_errors=True)
-    return {"launches": launches, "agree": float(agree), "max_dprob": float(dprob),
+    return {"launches": launches, "bn_relu_launches": bn_launches,
+            "agree": float(agree), "max_dprob": float(dprob),
             "class_shares": shares.tolist(), "tiles_per_s": rates,
             "forward_ms": forward, "tiles": {"request": len(ds),
                                              "overlap": len(ds_overlap)}}
@@ -1333,7 +1655,8 @@ def run_training(card: str, device="cuda") -> dict:
     state.optimizer.step()
     eval_after = eval_step(state, eval_batch)
     sync(device)
-    launches = {k: LAUNCHES[k] for k in (conv_fused.KERNEL, rotate.KERNEL)}  # ends here
+    launches = {k: LAUNCHES[k] for k in (conv_fused.KERNEL, rotate.KERNEL,
+                                         batchnorm.KERNEL)}  # ends here
     keys_opt = _pack_keys(model)
 
     losses = [v.item() for v in losses]
@@ -1345,7 +1668,11 @@ def run_training(card: str, device="cuda") -> dict:
     if not fixed_losses[-1] < fixed_losses[0]:
         raise AssertionError(f"{FIXED_STEPS} steps on one batch did not lower the loss")
     forwards = TRAIN_STEPS + FIXED_STEPS + 3  # train forwards + fused eval forwards
-    expected = {conv_fused.KERNEL: 9 * forwards, rotate.KERNEL: 3 * TRAIN_STEPS}
+    # The BatchNorm-ReLU kernels: 3 launches forward and 3 backward for
+    # bn1 of each of the 9 DoubleConvs a train step (bn0 is the fused
+    # pair's), none in eval mode.
+    expected = {conv_fused.KERNEL: 9 * forwards, rotate.KERNEL: 3 * TRAIN_STEPS,
+                batchnorm.KERNEL: 6 * 9 * (TRAIN_STEPS + FIXED_STEPS)}
     if not on_card:
         expected = {k: 0 for k in expected}  # a CPU tensor runs the plain versions
     log(f"  launches: {launches} for {forwards} forwards and {TRAIN_STEPS} augment steps")
@@ -1656,7 +1983,7 @@ def run_fit(card: str, device="cuda") -> dict:
     with Phase("fit: cache parity"):
         local_worst = cache_parity(ds, device)
     cli = ["--device", str(device)]
-    launches = {}
+    launches, bn_launches = {}, {}
 
     def counted(name, fn):
         sync(device)
@@ -1665,6 +1992,7 @@ def run_fit(card: str, device="cuda") -> dict:
         out = fn()
         sync(device)
         launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        bn_launches[name] = LAUNCHES[batchnorm.KERNEL]
         return out, time.perf_counter() - t0
 
     with Phase(f"fit: {FIT_EPOCHS} epochs through the CLI"), watch_checkpoints() as (saves, _):
@@ -1730,9 +2058,10 @@ def run_fit(card: str, device="cuda") -> dict:
         raise AssertionError("serving through the cache disagrees with the host path")
 
     expected = {k: (9 * v if on_card else 0) for k, v in forwards.items()}
-    log(f"  conv launches {launches} for forwards {forwards}")
+    log(f"  conv launches {launches} for forwards {forwards}; {batchnorm.KERNEL} {bn_launches}")
     if launches != expected:
         raise AssertionError(f"expected conv launches {expected}, got {launches}")
+    check_bn_relu_launches("fit", bn_launches, on_card, True)
     steady = {"cache": timing["steady_train_tiles_per_sec"],
               "host": timing_host["steady_train_tiles_per_sec"]}
     serve_rate = {k: len(serve_ds) / v for k, v in serve_s.items()}
@@ -1743,7 +2072,8 @@ def run_fit(card: str, device="cuda") -> dict:
         "timing_host": {k: timing_host[k] for k in ("fit_wall", "setup_wall", "train_wall",
                                                     "eval_wall", "ckpt_wall")},
         "steady_train_tiles_per_s": steady, "serve_tiles_per_s": serve_rate,
-        "fit_cli_s": fit_s, "launches": launches, "local_norm_rel": local_worst,
+        "fit_cli_s": fit_s, "launches": launches, "bn_relu_launches": bn_launches,
+        "local_norm_rel": local_worst,
         "resume_epoch_trace": traced, "reproduction": reproduction,
         "epochs": [s["epoch"] for s in saves + saves_more],
         "val_iou": [s["metric"] for s in saves + saves_more],
@@ -2008,7 +2338,7 @@ def run_evaluation(card: str, device="cuda", keep_dir: str | None = None) -> dic
     cfg = compose(overrides=eval_overrides(data_root, "dataset.sensor=PS", "eval_region=RegionA",
                                            "ignore_index=0"))
     entry = seeded_checkpoint(cfg, exp, {"ms_image": 4}, 0, device)
-    launches, forwards, out = {}, {}, {}
+    launches, bn_launches, forwards, out = {}, {}, {}, {}
 
     def counted(name, fn, n_forwards):
         sync(device)
@@ -2017,6 +2347,7 @@ def run_evaluation(card: str, device="cuda", keep_dir: str | None = None) -> dic
         result = fn()
         sync(device)
         launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        bn_launches[name] = LAUNCHES[batchnorm.KERNEL]
         forwards[name] = n_forwards
         return result, time.perf_counter() - t0
 
@@ -2179,7 +2510,8 @@ def run_evaluation(card: str, device="cuda", keep_dir: str | None = None) -> dic
     log(f"  conv launches {launches} for forwards {forwards}")
     if launches != expected:
         raise AssertionError(f"expected conv launches {expected}, got {launches}")
-    out["launches"] = launches
+    check_bn_relu_launches("evaluation", bn_launches, on_card, False)
+    out["launches"], out["bn_relu_launches"] = launches, bn_launches
     if keep_dir is not None:
         shutil.rmtree(keep_dir, ignore_errors=True)
         os.makedirs(keep_dir)
@@ -2215,7 +2547,7 @@ def run_entry_points(card: str, kept: dict, device="cuda") -> dict:
     import bench_torch
 
     on_card = torch.device(device).type == "cuda"
-    out = {"bench": {}, "launches": {}}
+    out = {"bench": {}, "launches": {}, "bn_relu_launches": {}}
     for conv_impl in ("xla", "pallas_fused"):
         sync(device)
         LAUNCHES.clear()  # a main path starts here
@@ -2224,6 +2556,7 @@ def run_entry_points(card: str, kept: dict, device="cuda") -> dict:
                                batch=TRAIN_BATCH, base_feat_channels=BASE, steps=BENCH_STEPS)
         sync(device)
         out["launches"][conv_impl] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        out["bn_relu_launches"][conv_impl] = LAUNCHES[batchnorm.KERNEL]
         out["bench"][conv_impl] = dict(res, seconds=time.perf_counter() - t0)
         log(f"  bench_torch --conv_impl {conv_impl}: {json.dumps(res)} [{card}]")
         rates = [res[k] for k in ("value", "augmented_recipe_value", "inference_value")]
@@ -2240,6 +2573,7 @@ def run_entry_points(card: str, kept: dict, device="cuda") -> dict:
     expected = {"xla": 0, "pallas_fused": 9 * forwards if on_card else 0}
     if out["launches"] != expected:
         raise AssertionError(f"bench_torch conv launches {out['launches']}, expected {expected}")
+    check_bn_relu_launches("entry points", out["bn_relu_launches"], on_card, True)
 
     # Batch_infer_torch.sh, with ``python`` this interpreter (a wrapper,
     # not a link: a link elsewhere would lose a virtual environment).
@@ -2408,7 +2742,7 @@ def run_tools(card: str, device="cuda") -> dict:
                                     root_dir=data_root, eval_region=r, ignore_index=-1,
                                     seed_num=0)) for r in TOOLS_REGIONS}
     nvb = {r: -(-n // TOOLS_BATCH) for r, n in n_valid.items()}
-    launches, forwards, seconds, out = {}, {}, {}, {}
+    launches, bn_launches, forwards, seconds, out = {}, {}, {}, {}, {}
 
     def counted(name, fn, n_forwards):
         sync(device)
@@ -2417,6 +2751,7 @@ def run_tools(card: str, device="cuda") -> dict:
         result = fn()
         sync(device)
         launches[name] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        bn_launches[name] = LAUNCHES[batchnorm.KERNEL]
         seconds[name] = time.perf_counter() - t0
         forwards[name] = n_forwards
         return result
@@ -2688,7 +3023,8 @@ def run_tools(card: str, device="cuda") -> dict:
     log(f"  conv launches {launches} for forwards {forwards}")
     if launches != expected:
         raise AssertionError(f"expected conv launches {expected}, got {launches}")
-    out["launches"] = launches
+    check_bn_relu_launches("model tools", bn_launches, on_card, True)
+    out["launches"], out["bn_relu_launches"] = launches, bn_launches
     out["seconds"] = seconds
     shutil.rmtree(WORK, ignore_errors=True)
     return out
@@ -2754,6 +3090,70 @@ def step_grads(model, sd, batch: dict):
     return logs["loss"].item(), grads, (lambda: step(state, batch))
 
 
+@contextlib.contextmanager
+def _bn_decisions(decisions: dict):
+    """The fused_bn comparison's ReLU and 2x2 pool decisions. With
+    ``decisions`` empty, records the fused_bn=true step's own as it runs,
+    unchanged: each BatchNormReLU's mask (``z > 0`` of
+    ``unet.bn_relu_train``, the kernels on the card) and each
+    ``F.max_pool2d``'s indices. Else the fused_bn=false step applies them
+    call by call: FlaxBatchNormReLU's ReLU becomes ``torch.where(mask, y,
+    0)`` (the ReLU's gradient for that mask) and a pool gathers the
+    recorded elements; ``decisions["forced"]`` counts the elements where
+    its own decision differs, ``decisions["elements"]`` those decided."""
+    from floodplanet_code_tpu_torch.models import unet
+
+    record = not decisions
+    calls = {"relu": 0, "pool": 0}
+    forced = decisions.setdefault("forced", {"relu": 0, "pool": 0})
+    elements = decisions.setdefault("elements", {"relu": 0, "pool": 0})
+    saved = unet.bn_relu_train, F.relu, F.max_pool2d
+    bn_relu_train, relu, max_pool2d = saved
+
+    def recorded(kind, shape):
+        k, calls[kind] = calls[kind], calls[kind] + 1
+        if k >= len(decisions[kind]) or decisions[kind][k].shape != shape:
+            raise AssertionError(f"{kind} call {k} of shape {tuple(shape)} has no recorded "
+                                 f"decision")
+        elements[kind] += decisions[kind][k].numel()
+        return decisions[kind][k]
+
+    def recording_bn_relu(x, scale, bias, eps=1e-5, group=None):
+        z, mean, var = bn_relu_train(x, scale, bias, eps, group)
+        decisions.setdefault("relu", []).append(z.detach() > 0)
+        return z, mean, var
+
+    def matched_relu(y, inplace=False):
+        mask = recorded("relu", y.shape)
+        forced["relu"] += int(((y > 0) != mask).sum())
+        return torch.where(mask, y, y.new_zeros(()))
+
+    def pool(x, kernel_size, *args, **kwargs):
+        out, idx = max_pool2d(x, kernel_size, *args, return_indices=True, **kwargs)
+        if record:
+            decisions.setdefault("pool", []).append(idx)
+            return out
+        want = recorded("pool", idx.shape)
+        forced["pool"] += int((idx != want).sum())
+        picked = x.flatten(2).gather(2, want.flatten(2)).view(want.shape)
+        return picked.contiguous(memory_format=torch.channels_last
+                                 if x.is_contiguous(memory_format=torch.channels_last)
+                                 else torch.contiguous_format)
+
+    if record:
+        unet.bn_relu_train = recording_bn_relu
+    else:
+        F.relu = matched_relu
+    F.max_pool2d = pool
+    try:
+        yield
+    finally:
+        unet.bn_relu_train, F.relu, F.max_pool2d = saved
+    if not record and calls != {k: len(decisions[k]) for k in calls}:
+        raise AssertionError(f"{calls} decisions applied of "
+                             f"{ {k: len(decisions[k]) for k in calls} } recorded")
+
+
 def gif_sizes(paths: list[str]) -> list[tuple]:
     from PIL import Image
 
@@ -2778,7 +3178,7 @@ def run_data_tools(card: str, device="cuda") -> dict:
     with Phase("data tools: write scenes"):
         write_scenes(data_root, seed=13)
     cli = ["--device", str(device)]
-    launches, seconds, out = {}, {}, {}
+    launches, bn_launches, seconds, out = {}, {}, {}, {}
 
     def counted(name, fn):
         sync(device)
@@ -2787,6 +3187,7 @@ def run_data_tools(card: str, device="cuda") -> dict:
         result = fn()
         sync(device)
         launches[name] = {k: LAUNCHES[k] for k in (conv_fused.KERNEL, rotate.KERNEL)}  # ends
+        bn_launches[name] = LAUNCHES[batchnorm.KERNEL]
         seconds[name] = time.perf_counter() - t0
         return result
 
@@ -2903,21 +3304,32 @@ def run_data_tools(card: str, device="cuda") -> dict:
     xb = {"image": torch.rand(TRAIN_BATCH, TILE, TILE, 4, generator=gen, device=device),
           "target": torch.randint(0, 3, (TRAIN_BATCH, TILE, TILE), generator=gen, device=device,
                                   dtype=torch.int32)}
-    steps, step_ms = {}, {}
+    # The fused_bn=true step records its ReLU and pool decisions; a second
+    # fused_bn=false step applies them (_bn_decisions).
+    steps, step_ms, decisions = {}, {}, {}
     for name, dtype, fused_bn in (("false", torch.float32, False), ("true", torch.float32, True),
+                                  ("false matched", torch.float32, False),
                                   ("f64", torch.float64, False)):
-        loss, grads, again = counted(f"step fused_bn={name}",
-                                     lambda: step_grads(ef(dtype, fused_bn), sd, xb))
+        with (_bn_decisions(decisions) if name in ("true", "false matched")
+              else contextlib.nullcontext()):
+            loss, grads, again = counted(f"step fused_bn={name}",
+                                         lambda: step_grads(ef(dtype, fused_bn), sd, xb))
         steps[name] = (loss, grads)
-        if on_card and name != "f64":
+        if on_card and name in ("false", "true"):
             step_ms[name] = cuda_ms(again, 3, warmup=1)
         del again
     (lf, gf), (lt, gt), (_, g64) = steps["false"], steps["true"], steps["f64"]
+    lm, gm = steps["false matched"]
     loss_rel = _rel(lf, lt)
     rels = grad_rels(gf, gt)
     grad_max = max(r[0] for r in rels.values())
     grad_norm = max(r[1] for r in rels.values())
     worst_tensor = max(rels, key=lambda n: rels[n][1])
+    matched = grad_rels(gm, gt)
+    matched_max = max(r[0] for r in matched.values())
+    matched_norm = max(r[1] for r in matched.values())
+    forced = {k: decisions["forced"][k] / max(decisions["elements"][k], 1)
+              for k in ("relu", "pool")}
     # The f64 step (flax rounding, f64 activations, the loss on f32 logits)
     # as the witness, as in f32_step_check: each f32 step's worst distance
     # to it, (max, norm) forms.
@@ -2927,24 +3339,40 @@ def run_data_tools(card: str, device="cuda") -> dict:
     witness_ok = all(worst64["false"][i] <= WITNESS_RATIO * worst64["true"][i] for i in (0, 1))
     log(f"  fused_bn=false vs true: bf16 forward of {BATCH} argmax agreement {agree} "
         f"({agree_decided} on the {float(decided.float().mean()):.4%} of pixels decided by more "
-        f"than {2 * DPROB_TOL}), max |dp| {dprob:.3e}; f32 step of {TRAIN_BATCH}: loss rel {loss_rel:.2e}, worst grad "
-        f"{grad_norm:.2e}·||g|| ({worst_tensor}) / {grad_max:.2e}·max|g|; vs the f64 step: "
+        f"than {2 * DPROB_TOL}), max |dp| {dprob:.3e}; f32 step of {TRAIN_BATCH}: loss rel "
+        f"{loss_rel:.2e}, worst grad {grad_norm:.2e}·||g|| ({worst_tensor}) / "
+        f"{grad_max:.2e}·max|g|; with the true step's decisions: loss rel {_rel(lm, lt):.2e}, "
+        f"worst grad {matched_norm:.2e}·||g|| / {matched_max:.2e}·max|g|, forced ReLU "
+        f"{decisions['forced']['relu']} of {decisions['elements']['relu']}, pool "
+        f"{decisions['forced']['pool']} of {decisions['elements']['pool']}; vs the f64 step: "
         f"false {worst64['false'][0]:.2e}/{worst64['false'][1]:.2e}, true "
         f"{worst64['true'][0]:.2e}/{worst64['true'][1]:.2e} (max/norm); forward ms {fwd_ms}, "
         f"step ms {step_ms} [{card}]")
+    # The largest element of the unmatched gap is set by the ReLUs and pools
+    # that the two steps' f32 roundings decide differently: it reads about
+    # the f32 steps' own distance to the f64 step, so it is printed, and the
+    # element-wise bound holds the gap with the decisions matched. Both forms
+    # are held there, the norm form unmatched too, and the decisions that
+    # matching overrides must be few (BN_FORCED_SHARE): a fault in either
+    # build's values moves the matched gap, a fault in its decisions the
+    # forced share.
     if not (agree >= 0.999 and dprob <= DPROB_TOL and loss_rel <= 1e-4
-            and grad_norm <= GRAD_TOL and grad_max <= GRAD_MAX_TOL and witness_ok):
+            and grad_norm <= GRAD_TOL and witness_ok and _rel(lm, lt) <= 1e-4
+            and matched_norm <= GRAD_TOL and matched_max <= GRAD_MAX_TOL
+            and all(v <= BN_FORCED_SHARE for v in forced.values())):
         raise AssertionError("fused_bn=false disagrees with fused_bn=true")
     out["fused_bn_false"] = {"argmax_agree": agree, "argmax_agree_decided": agree_decided,
                              "decided_share": float(decided.float().mean()),
                              "max_dprob": dprob, "loss_rel": loss_rel,
                              "grad_rel_norm": grad_norm, "grad_rel_max": grad_max,
                              "worst_tensor": worst_tensor,
+                             "matched": {"loss_rel": _rel(lm, lt), "grad_rel_norm": matched_norm,
+                                         "grad_rel_max": matched_max, "forced_share": forced},
                              "f64_witness": {k: {"grad_rel_max": v[0], "grad_rel_norm": v[1]}
                                              for k, v in worst64.items()},
                              "forward_ms": {str(k).lower(): v for k, v in fwd_ms.items()},
                              "step_ms": step_ms}
-    del probs, steps, gf, gt, g64, top2
+    del probs, steps, gf, gt, gm, g64, top2, decisions
 
     # 4. tpu.debug_nans: clean fits off, on and off again, and a poisoned
     # fit. The fit runs under deterministic algorithms (train/fit.py), so a
@@ -3058,8 +3486,10 @@ def run_data_tools(card: str, device="cuda") -> dict:
 
     if any(any(v.values()) for v in launches.values()):
         raise AssertionError(f"a hand-written kernel ran on this phase's paths: {launches}")
+    check_bn_relu_launches("data tools", bn_launches, on_card, True)
     out["launches"] = {k: sum(v[k] for v in launches.values())
                        for k in (conv_fused.KERNEL, rotate.KERNEL)}
+    out["bn_relu_launches"] = bn_launches
     out["seconds"] = seconds
     shutil.rmtree(WORK, ignore_errors=True)
     return out
@@ -3243,7 +3673,7 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     n = spec["batch"]["image"].shape[0]
     valid = torch.arange(n, device=device)[rows] < spec["n_valid"]
     on_card = torch.device(device).type == "cuda"
-    out, launches = {}, {}
+    out, launches, bn_launches = {}, {}, {}
 
     def counted(name, fn, kernel=conv_fused.KERNEL):
         sync(device)
@@ -3251,6 +3681,7 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
         value = fn()
         sync(device)
         launches[name] = LAUNCHES[kernel]  # and ends here
+        bn_launches[name] = LAUNCHES[batchnorm.KERNEL]
         return value
 
     model, state = _md_model(spec, torch.float32, device, group, space)
@@ -3346,7 +3777,7 @@ def md_steps(spec: dict, device, mesh=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
     aug = counted("augment", lambda: augment(gen, batch), rotate.KERNEL)
     out["augment"] = {k: aug[k].cpu() for k in ("image", "target")}
-    out["launches"] = launches
+    out["launches"], out["bn_relu_launches"] = launches, bn_launches
     return out
 
 
@@ -3594,6 +4025,7 @@ def md_fit_rank(cfg: Config, exp: str, pod_parity: dict | None, device) -> dict:
         out["best"] = train_fit.fit_model(cfg, exp, device=device)
         sync(device)
         out["launches"] = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        out["bn_relu_launches"] = LAUNCHES[batchnorm.KERNEL]
     finally:
         ckpt.CheckpointManager.save, ckpt.CheckpointManager._write = save, write
     # What this rank holds at the fit's end: its parameters and running
@@ -3778,7 +4210,9 @@ def sp_step_checks(ranks: list, one: dict, expected: dict, card: str, on_card: b
     out["bf16_losses"] = ranks[0]["bf16_losses"]
     out["collectives_per_rank"] = [r["collectives"] for r in ranks]
     out["launches_per_rank"] = ranks[0]["launches"]
-    out["launches"] = {"conv": sum(r["launches"][k] for r in ranks for k in
+    out["bn_relu_launches_per_rank"] = ranks[0]["bn_relu_launches"]
+    out["launches"] = {"bn_relu": sum(sum(r["bn_relu_launches"].values()) for r in ranks),
+                       "conv": sum(r["launches"][k] for r in ranks for k in
                                    ("eval", "f32_steps", "bf16_steps")),
                        "shear": sum(r["launches"]["augment"] for r in ranks)}
     halo = [r["collectives"].get("halo", {"count": 0, "ms": 0.0}) for r in ranks]
@@ -4014,7 +4448,9 @@ def run_multi_device(card: str, device="cuda") -> dict:
         if r["launches"] != expected:
             raise AssertionError(f"launches {r['launches']}, expected {expected}")
     result["launches_per_rank"] = ranks[0]["launches"]
-    launches = {"conv": sum(r["launches"][k] for r in ranks for k in
+    result["bn_relu_launches_per_rank"] = ranks[0]["bn_relu_launches"]
+    launches = {"bn_relu": sum(sum(r["bn_relu_launches"].values()) for r in ranks),
+                "conv": sum(r["launches"][k] for r in ranks for k in
                             ("eval", "f32_steps", "bf16_steps")),
                 "shear": sum(r["launches"]["augment"] for r in ranks)}
     if on_card:
@@ -4035,7 +4471,7 @@ def run_multi_device(card: str, device="cuda") -> dict:
     spatial = sp_step_checks(sp_ranks, one, expected, card, on_card, TILE)
     spatial["crop"] = sp_step_checks(sp_crop_ranks, one_sp, expected, card, on_card, SP_TILE)
     crop_launches = spatial["crop"].pop("launches")
-    for kernel in ("conv", "shear"):
+    for kernel in ("bn_relu", "conv", "shear"):
         spatial["launches"][kernel] += crop_launches[kernel]
     if on_card:
         spatial["y_ext_overhead"] = sp_ext_overhead(card)
@@ -4088,9 +4524,11 @@ def run_multi_device(card: str, device="cuda") -> dict:
             raise AssertionError(f"{name} fit: conv launches per rank {got_l}, expected {want_l}")
         fit_launches[name] = got_l
     launches["conv"] += sum(sum(v) for v in fit_launches.values())
+    launches["bn_relu"] += sum(r["bn_relu_launches"] for run in fits.values() for r in run)
     spatial["fit"] = sp_fit_checks(sp_fit, [s["losses"] for s in saves_one_sp], n_loader_sp,
                                    n_valid_batches_sp, card, on_card)
     spatial["launches"]["conv"] += sum(spatial["fit"]["launches_per_rank"])
+    spatial["launches"]["bn_relu"] += sum(r["bn_relu_launches"] for r in sp_fit)
     spatial["seconds_per_rank"] = {k: out[0]["seconds"][k]
                                    for k in ("spatial_steps", "spatial_crop_steps",
                                              "fit_spatial")}
@@ -4133,6 +4571,8 @@ def run_multi_device(card: str, device="cuda") -> dict:
                       dataset=serve_ds, device=device, devices=[dev, dev])
         sync(device)
         infer_launches = LAUNCHES[conv_fused.KERNEL]  # and ends here
+        check_bn_relu_launches("infer over two replicas", {"infer": LAUNCHES[batchnorm.KERNEL]},
+                               on_card, False)
         check_masks(paths, TRAIN_SCENES)
     want_infer = 9 * 2 * -(-len(serve_ds) // batch_size) if on_card else 0
     if infer_launches != want_infer:
@@ -4165,6 +4605,9 @@ def run_multi_device(card: str, device="cuda") -> dict:
         log("multi-device: 2-card runs not run "
             f"({torch.cuda.device_count() if on_card else 0} card)")
         result["two_cards"] = None
+    check_bn_relu_launches("multi-device", {"data parallel": launches["bn_relu"],
+                                            "spatial": spatial["launches"]["bn_relu"]},
+                           on_card, True)
     result["launches"] = launches
     shutil.rmtree(WORK, ignore_errors=True)
     return result
@@ -4189,6 +4632,10 @@ def main() -> int:
         worst = kernel_parity()
     with Phase("kernel timing"):
         rows = kernel_timing(card)
+    with Phase("bn_relu parity"):
+        bn_worst = bn_relu_parity()
+    with Phase("bn_relu timing"):
+        bn_rows = bn_relu_timing_apart(card)
     with Phase("slice"):
         result = run_slice(card)
     with Phase("shear parity"):
@@ -4216,6 +4663,15 @@ def main() -> int:
     # bounds the levels that make up most of that sum.
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    bn_by_path = {"serving": result["bn_relu_launches"],
+                  "training": train["launches"][batchnorm.KERNEL],
+                  "fit": sum(fit["bn_relu_launches"].values()),
+                  "evaluation": sum(evaluation["bn_relu_launches"].values()),
+                  "tools": sum(tools["bn_relu_launches"].values()),
+                  "data_tools": sum(data_tools["bn_relu_launches"].values()),
+                  "multi_device": multi["launches"]["bn_relu"],
+                  "spatial": multi["spatial"]["launches"]["bn_relu"],
+                  "entry_points": sum(entry_points["bn_relu_launches"].values())}
     kernels = {"kernels": [{
         "name": conv_fused.KERNEL,
         "route": "cuda",
@@ -4293,6 +4749,30 @@ def main() -> int:
         "bound_ms": shear_row["bound_ms"],
         "bound_by": shear_row["bound_by"],
         "library_ms": shear_row["library_ms"],
+    }, {
+        "name": batchnorm.KERNEL,
+        "route": "cuda",
+        "source": "floodplanet_code_tpu_torch/ops/csrc/batchnorm.cu",
+        "replaces": None,  # bn_relu_train is plain jnp in the JAX package
+        # Every train-mode BatchNormReLU forward and backward on the card:
+        # 3 launches each (2 + 2 with a group); none in eval mode (serving,
+        # evaluation), 54 a train step of the training phase (bn1 of each
+        # DoubleConv under pallas_fused), read on each main path.
+        "launches": sum(bn_by_path.values()),
+        "launches_by_path": bn_by_path,
+        # Worst readings per dtype: statistics and sums against their f64
+        # sums (of their magnitudes), z and dx against the plain version.
+        "parity": bn_worst,
+        # Per configuration, one train step's 18 calls forward and backward
+        # in bf16: device ms of the kernels, the plain version and
+        # F.batch_norm + F.relu; the least time at 10 bytes an element.
+        "ms": {k: r["ms"] for k, r in bn_rows.items()},
+        "wrapper_ms": {k: r["wrapper_ms"] for k, r in bn_rows.items()},
+        "plain_ms": {k: r["plain_ms"] for k, r in bn_rows.items()},
+        "bound_ms": {k: r["bound_ms"] for k, r in bn_rows.items()},
+        "bound_by": "bytes",
+        "library_ms": {k: r["library_ms"] for k, r in bn_rows.items()},
+        "steps": bn_rows,
     }]}
     log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))

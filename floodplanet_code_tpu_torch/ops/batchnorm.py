@@ -14,6 +14,16 @@ arithmetic in the same order, on NCHW tensors (any memory format):
 ``torch.nn.functional.batch_norm`` is not used: it rounds differently and
 its running update takes the unbiased variance.
 
+A CUDA tensor runs the hand-written kernels of ``csrc/batchnorm.cu``
+(``forward_cuda``, ``backward_cuda``: three launches each way, the same
+per-element arithmetic, the sums in another fixed order, no atomics); a
+non-channels_last input is made channels_last first. Any other tensor (the
+CPU, the meta device) runs the plain PyTorch version below
+(``_BNReLUTrain``), the kernels' oracle. Each
+forward and backward call counts ``bn_relu.kernel`` or ``bn_relu.plain`` on
+the port's tracer (``utils/trace.py``); ``LAUNCHES["bn_relu"]`` counts the
+kernels' launches.
+
 ``group`` (the JAX ``axis_name``, SyncBN): each rank holds its rows of the
 batch and the statistics are the whole batch's. Forward: the group's mean
 and E[x^2] are ``sum_k n_k * stat_k / sum_k n_k`` over the ranks' pixel
@@ -33,21 +43,40 @@ every other rank's through the shared statistics.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from floodplanet_code_tpu_torch.ops import LAUNCHES, cuda_build
 from floodplanet_code_tpu_torch.parallel.collectives import all_reduce
+from floodplanet_code_tpu_torch.utils import trace
 
 _AXES = (0, 2, 3)  # N, H, W of an NCHW tensor
+KERNEL = "bn_relu"
+_NAME = "batchnorm"  # csrc/batchnorm.cu; its C functions carry the prefix bnr_
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}  # the kernels' dtype codes
+_CPT = 8  # channels a kernel thread owns (batchnorm.cu's CPT)
+_THREADS = 256  # threads of a row kernel's block (THREADS)
+_BLOCKS_PER_SM = 8  # a full wave of 256-thread blocks
+_MIN_ROWS = 4  # rows a thread walks at least, so that a block's reduction is paid for
+# Launches per call of bnr_forward / bnr_backward by stage: 0 whole, 1 the
+# sums (before a group's collective), 2 the rest.
+_STAGE_LAUNCHES = {0: 3, 1: 2, 2: 2}
 
 
 def _channel(t: torch.Tensor) -> torch.Tensor:
     return t.view(1, -1, 1, 1)
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _acc(x: torch.Tensor) -> torch.Tensor:
     """x in the statistics' type: f32, or f64 for an f64 x."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+    return x.to(_acc_dtype(x.dtype))
 
 
 def _local_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,8 +135,12 @@ def _affine(x, scale, bias, mean, inv):
 
 
 class _BNReLUTrain(torch.autograd.Function):
+    """The plain version: every tensor but a CUDA one, and the kernels'
+    oracle on the card."""
+
     @staticmethod
     def forward(ctx, x, scale, bias, eps, group):
+        trace.count("bn_relu.plain", 1)
         mean, m2 = _local_stats(x)
         if group is not None:
             (mean, m2), _ = _group_mean([mean, m2], x.shape[0] * x.shape[2] * x.shape[3], group)
@@ -123,6 +156,7 @@ class _BNReLUTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz, _dmean, _dvar):
         # The statistics feed the running averages only: no gradient.
+        trace.count("bn_relu.plain", 1)
         x, scale, bias, mean, inv = ctx.saved_tensors
         n = x.shape[0] * x.shape[2] * x.shape[3]
         a, b = _affine(x, scale, bias, mean, inv)
@@ -142,6 +176,211 @@ class _BNReLUTrain(torch.autograd.Function):
         return dx.to(x.dtype), dscale, dbias, None, None
 
 
+@functools.lru_cache(maxsize=None)
+def grid(m: int, c: int, sms: int = 132) -> tuple[int, int, int]:
+    """The row kernels' grid for an [m, c] activation on a card of ``sms``
+    SMs: (slabs, rows per slab, tx). A block is tx threads across channels
+    (8 each; a power of two, at most 32) by 256 / tx row lanes and covers
+    one slab of rows and 8 * tx channels. The slabs make about a full wave
+    of blocks with the channel tiles, but no more than leave each thread
+    ``_MIN_ROWS`` rows; none is empty."""
+    if m < 1 or c < 1:
+        raise ValueError(f"no rows or channels: [{m}, {c}]")
+    tx = min(32, 1 << (-(-c // _CPT) - 1).bit_length())
+    tiles = -(-c // (_CPT * tx))
+    lanes = _THREADS // tx
+    slabs = max(1, min(-(-sms * _BLOCKS_PER_SM // tiles), -(-m // (lanes * _MIN_ROWS))))
+    rows = -(-m // slabs)
+    return -(-m // rows), rows, tx
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
+    """Raise on what the kernels do not take (before anything is built)."""
+    if x.dim() != 4:
+        raise ValueError(f"want x [N, C, H, W], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the {KERNEL} kernels take bfloat16, float32 and float64, "
+                        f"not {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"x {tuple(x.shape)} is empty")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (x.shape[1],):
+            raise ValueError(f"want {name} [{x.shape[1]}], got {tuple(t.shape)}")
+        if t.dtype not in (torch.float32, _acc_dtype(x.dtype)):
+            raise TypeError(f"{name} must be float32 or {_acc_dtype(x.dtype)}, not {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bnr_forward.restype = i32
+    lib.bnr_forward.argtypes = ([i32] * 3 + [ptr] * 2 + [ctypes.c_longlong] + [i32] * 4
+                                + [ptr] * 2 + [ctypes.c_double] + [ptr] * 8)
+    lib.bnr_backward.restype = i32
+    lib.bnr_backward.argtypes = ([i32] * 3 + [ptr] * 3 + [ctypes.c_longlong] + [i32] * 4
+                                 + [ptr] * 10)
+
+
+def _defines(dtype: torch.dtype, vec: int) -> dict[str, int]:
+    """``batchnorm.cu`` builds one library per type and load width (``vec``
+    1: 16-byte loads): its macros."""
+    return {"BNR_DTYPE": _DTYPES[dtype], "BNR_VEC": vec}
+
+
+def build(dtype: torch.dtype, vec: int) -> tuple[str, str]:
+    """Compile ``batchnorm.cu``'s library for ``dtype`` and ``vec``
+    (``ops/cuda_build.py``); returns (library path, ``ptxas -v`` report,
+    empty when it was built already)."""
+    return cuda_build.build(_NAME, _defines(dtype, vec))
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels read it: NCHW in channels_last memory, [M, C]."""
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _arg(a):
+    """A C argument: a tensor's address, None (a null pointer) or a number."""
+    return a.data_ptr() if isinstance(a, torch.Tensor) else a
+
+
+def _launch(fn: str, stage: int, x: torch.Tensor, rows: list, *args) -> None:
+    """One ``bnr_<fn>`` call (fn: "forward" or "backward") of ``stage`` on
+    x's current stream. ``rows``: the other [M, C] tensors (z; or dz and
+    dx; None where the stage writes none), which with x decide the 16-byte
+    loads; ``args``: the C function's arguments after them, tensors (None:
+    null) or numbers."""
+    dev = x.device
+    m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
+    slabs, per_slab, tx = grid(m, c, cuda_build.sm_count(dev))
+    rows = [_arg(t) for t in (x, *rows)]
+    vec = int(c % _CPT == 0 and all(p % 16 == 0 for p in rows if p is not None))
+    lib = cuda_build.load(_NAME, "bnr", _declare, dev, defines=_defines(x.dtype, vec))
+    args = [_arg(a) for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"bnr_{fn}")(
+            stage, _DTYPES[x.dtype], vec, *rows, m, c, slabs, per_slab, tx,
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} {fn} launch failed: "
+                           f"{cuda_build.error_string(lib, 'bnr', err)} "
+                           f"(x {tuple(x.shape)} {x.dtype}, stage {stage})")
+    LAUNCHES[KERNEL] += _STAGE_LAUNCHES[stage]
+
+
+def _partials(x: torch.Tensor) -> torch.Tensor:
+    """The row kernels' per-slab sums: [2, slabs, C] in the statistics' type."""
+    m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
+    slabs = grid(m, c, cuda_build.sm_count(x.device))[0]
+    return torch.empty(2, slabs, c, dtype=_acc_dtype(x.dtype), device=x.device)
+
+
+def forward_stats_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 of the forward: this rank's (mean, E[x^2]) of a channels_last
+    CUDA x, in the statistics' type."""
+    mean, m2 = torch.empty(2, x.shape[1], dtype=_acc_dtype(x.dtype), device=x.device)
+    _launch("forward", 1, x, [None], None, None, 0.0, _partials(x), mean, m2, None, None, None,
+            None)
+    return mean, m2
+
+
+def forward_apply_cuda(x, scale, bias, eps, mean=None, m2=None):
+    """The forward on a channels_last CUDA x with scale and bias in the
+    statistics' type: from x's own statistics (stage 0), or from the given
+    (mean, m2) (stage 2: a group's, or the plain version's in the card's
+    checks). Returns (z, mean, var, inv, a, b)."""
+    acc, c = _acc_dtype(x.dtype), x.shape[1]
+    z = torch.empty_like(x, memory_format=torch.channels_last)
+    a, b = torch.empty(2, c, dtype=x.dtype, device=x.device)
+    if mean is None:
+        mean, m2, var, inv = torch.empty(4, c, dtype=acc, device=x.device)
+        stage, part = 0, _partials(x)
+    else:
+        var, inv = torch.empty(2, c, dtype=acc, device=x.device)
+        stage, part = 2, None
+    _launch("forward", stage, x, [z], scale, bias, float(eps), part, mean, m2, var, inv, a, b)
+    return z, mean, var, inv, a, b
+
+
+def backward_sums_cuda(x, dz, a, b, mean, inv) -> torch.Tensor:
+    """Stage 1 of the backward: this rank's [sum_dz, sum_dz_xhat] as [2, C]
+    in the statistics' type (dz masked by the ReLU, ``xhat = (x - mean) *
+    inv``); x and dz channels_last on the card."""
+    sums = torch.empty(2, x.shape[1], dtype=mean.dtype, device=x.device)
+    _launch("backward", 1, x, [dz, None], a, b, mean, inv, None, _partials(x), sums, None, None)
+    return sums
+
+
+def backward_apply_cuda(x, dz, a, b, mean, inv, scale, sums=None, n_total=None):
+    """dx of a channels_last CUDA x and dz: from their own sums (stage 0,
+    count M), or from the given [2, C] ``sums`` divided by the device scalar
+    ``n_total`` (stage 2: a group's; None: M). Returns (dx, sums)."""
+    c = x.shape[1]
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    coef = torch.empty(3, c, dtype=mean.dtype, device=x.device)
+    if sums is None:
+        sums = torch.empty(2, c, dtype=mean.dtype, device=x.device)
+        stage, part = 0, _partials(x)
+    else:
+        stage, part = 2, None
+    _launch("backward", stage, x, [dz, dx], a, b, mean, inv, scale, part, sums, n_total, coef)
+    return dx, sums
+
+
+def forward_cuda(x, scale, bias, eps=1e-5, group=None):
+    """The forward's kernels: (z, mean, var, inv, a, b). With a group, the
+    local statistics go through ``_group_mean`` between stage 1 and 2."""
+    _check(x, scale, bias)
+    acc = _acc_dtype(x.dtype)
+    x, scale, bias = _rows(x), scale.to(acc).contiguous(), bias.to(acc).contiguous()
+    if group is None:
+        return forward_apply_cuda(x, scale, bias, eps)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    (mean, m2), _ = _group_mean(list(forward_stats_cuda(x)), n, group)
+    return forward_apply_cuda(x, scale, bias, eps, mean.contiguous(), m2.contiguous())
+
+
+def backward_cuda(x, dz, a, b, mean, inv, scale, group=None):
+    """The backward's kernels: (dx, sum_dz, sum_dz_xhat), the sums this
+    rank's; with a group, dx from the group's sums and count (one
+    all-reduce between stage 1 and 2, as the plain version)."""
+    if dz.shape != x.shape or dz.dtype != x.dtype:
+        raise ValueError(f"dz {tuple(dz.shape)} {dz.dtype} for x {tuple(x.shape)} {x.dtype}")
+    x, dz = _rows(x), _rows(dz)
+    if group is None:
+        dx, sums = backward_apply_cuda(x, dz, a, b, mean, inv, scale)
+        return dx, sums[0], sums[1]
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    sums = backward_sums_cuda(x, dz, a, b, mean, inv)
+    buf = torch.cat([sums.reshape(-1), sums.new_full((1,), float(n))])
+    all_reduce(buf, group)
+    c = x.shape[1]
+    dx, _ = backward_apply_cuda(x, dz, a, b, mean, inv, scale, buf[:2 * c], buf[2 * c:])
+    return dx, sums[0], sums[1]
+
+
+class _BNReLUTrainCUDA(torch.autograd.Function):
+    """``_BNReLUTrain``'s function through the kernels (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        trace.count("bn_relu.kernel", 1)
+        z, mean, var, inv, a, b = forward_cuda(x, scale, bias, eps, group)
+        ctx.save_for_backward(x, a, b, mean, inv, scale.to(mean.dtype))
+        ctx.group, ctx.dtypes = group, (scale.dtype, bias.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return z, mean, var
+
+    @staticmethod
+    def backward(ctx, dz, _dmean, _dvar):
+        trace.count("bn_relu.kernel", 1)
+        x, a, b, mean, inv, scale = ctx.saved_tensors
+        dx, sum_dz, sum_dz_xhat = backward_cuda(x, dz, a, b, mean, inv, scale, ctx.group)
+        # dscale and dbias: this rank's sums (module docstring).
+        return dx, sum_dz_xhat.to(ctx.dtypes[0]), sum_dz.to(ctx.dtypes[1]), None, None
+
+
 def bn_relu_train(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
     group=None,
@@ -152,6 +391,9 @@ def bn_relu_train(
     (z, mean, var): z in x's dtype, and the f32 batch mean and biased
     variance for the running-statistic update (not differentiable).
     ``group``: statistics over the group's whole batch (SyncBN); the
-    gradients of scale and bias stay this rank's (module docstring).
+    gradients of scale and bias stay this rank's (module docstring). The
+    kernels on a CUDA tensor, the plain version on any other.
     """
+    if x.is_cuda:
+        return _BNReLUTrainCUDA.apply(x, scale, bias, eps, group)
     return _BNReLUTrain.apply(x, scale, bias, eps, group)

@@ -27,7 +27,6 @@ reads NHWC. ``w`` is a conv weight in PyTorch's OIHW layout.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -74,12 +73,6 @@ def _load(device: torch.device) -> ctypes.CDLL:
     """The kernel library, built and loaded once, prepared for ``device``
     (``fp_prepare`` sets the shared-memory attribute there)."""
     return cuda_build.load(_NAME, "fp", _declare, device, prepare=True)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    """The bf16 kernel's persistent grid: one block per SM."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _round_up(n: int, m: int) -> int:
@@ -199,7 +192,7 @@ def relu_affine_conv3x3_cuda(y, a, b, w, packed=None):
         err = lib.fp_relu_affine_conv3x3(
             y.data_ptr(), ap.data_ptr(), bp.data_ptr(), wp.data_ptr(),
             out.data_ptr(), bsz, h, wid, c1, c2, c1p, c2p, int(bf), vec, bn, mt,
-            _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream,
+            cuda_build.sm_count(dev), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -10,6 +10,7 @@ loaded when a module is imported: the first launch on a card does it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -69,15 +70,21 @@ def source_digest(src: str) -> str:
     return digest.hexdigest()[:12]
 
 
-def build(name: str) -> tuple[str, str]:
+def _tag(defines: dict[str, int] | None) -> str:
+    """The part of a library's name that its ``-D`` macros make."""
+    return "".join(f"_{k}{v}" for k, v in sorted((defines or {}).items()))
+
+
+def build(name: str, defines: dict[str, int] | None = None) -> tuple[str, str]:
     """Compile ``csrc/<name>.cu`` for ``sm_90a`` unless this source version
     (``source_digest``: the file and the headers it includes) is already
-    built. Returns (library path, compiler report); the report (``ptxas
-    -v``: registers, shared memory, spills) is empty when the library was
-    already there."""
+    built with these ``defines`` (``-D<key>=<value>``: one library each).
+    Returns (library path, compiler report); the report (``ptxas -v``:
+    registers, shared memory, spills) is empty when the library was already
+    there."""
     src = source(name)
     digest = source_digest(src)
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}{_tag(defines)}_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -91,6 +98,7 @@ def build(name: str) -> tuple[str, str]:
         "-shared",
         "-Xcompiler",
         "-fPIC",
+        *(f"-D{k}={v}" for k, v in sorted((defines or {}).items())),
         "-o",
         tmp,
         src,
@@ -110,24 +118,27 @@ def load(
     declare: Callable[[ctypes.CDLL], None],
     device: torch.device,
     prepare: bool = False,
+    defines: dict[str, int] | None = None,
 ) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built and loaded once per process.
+    """The library of ``csrc/<name>.cu`` with ``defines`` (``build``), built
+    and loaded once per process.
 
     Its C functions carry ``prefix``: ``<prefix>_cuda_error_string(int)``
     names a CUDA error code, and with ``prepare`` an ``int
     <prefix>_prepare(void)`` runs once per device before the first launch
     there. ``declare`` sets the other functions' argument and result types.
     """
+    key = name + _tag(defines)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build(name)[0])
+            lib = ctypes.CDLL(build(name, defines)[0])
             errstr = getattr(lib, f"{prefix}_cuda_error_string")
             errstr.restype = ctypes.c_char_p
             errstr.argtypes = [ctypes.c_int]
             declare(lib)
-            _libs[name] = lib
-        if prepare and (name, device.index) not in _prepared:
+            _libs[key] = lib
+        if prepare and (key, device.index) not in _prepared:
             with torch.cuda.device(device):
                 err = getattr(lib, f"{prefix}_prepare")()
             if err != 0:
@@ -135,8 +146,14 @@ def load(
                     f"{name}: preparing {device} failed: "
                     f"{error_string(lib, prefix, err)}"
                 )
-            _prepared.add((name, device.index))
+            _prepared.add((key, device.index))
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the kernels' grids fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def error_string(lib: ctypes.CDLL, prefix: str, err: int) -> str:

@@ -8,6 +8,8 @@ count no kernel launch:
   the overlapping pass, the unfused comparison and every check;
 - shear parity: the shear against its plain version over both axes,
   orders and types;
+- BatchNorm-ReLU parity: its control flow over small UNets' shapes, the
+  ragged tails and the three types;
 - training: augmentation + train steps through the loader at batch 2 and a
   cut base width, the steps on one fixed batch, the evals before and after
   the updates, the fused-vs-unfused eval and the f32 fused-vs-plain step;
@@ -53,7 +55,7 @@ def test_slice_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     torch.manual_seed(0)
     result = chip_smoke.run_slice("cpu", device="cpu")
-    assert result["launches"] == 0
+    assert result["launches"] == result["bn_relu_launches"] == 0
     assert result["agree"] == 1.0  # one code path on the CPU: identical
     assert not (tmp_path / "work").exists()
 
@@ -67,6 +69,19 @@ def test_shear_parity_phase_runs_on_the_cpu(monkeypatch):
     assert worst[torch.float32] == worst[torch.bfloat16] == (0.0, 0.0)
 
 
+def test_bn_relu_parity_phase_runs_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "BN_CONFIGS", {"ef": ("ef_model", {"ms_image": 4}, 16),
+                                                   "lf": ("lf_model", {"ms_image": 2}, 32)})
+    monkeypatch.setattr(chip_smoke, "BN_BATCH", 2)
+    before = LAUNCHES["bn_relu"]
+    worst = chip_smoke.bn_relu_parity("cpu")
+    assert LAUNCHES["bn_relu"] == before
+    # One code path on the CPU: the kernels' stand-in is the plain version.
+    assert sorted(worst) == ["bfloat16", "float32", "float64"]
+    for w in worst.values():
+        assert w["ends"] == 0.0 and w["stats"] == w["plain_stats"] <= 1e-6
+
+
 def test_training_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "TILE", 64)
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
@@ -76,7 +91,7 @@ def test_training_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     torch.manual_seed(0)
     result = chip_smoke.run_training("cpu", device="cpu")
-    assert result["launches"] == {"relu_affine_conv3x3": 0, "shear": 0}
+    assert result["launches"] == {"relu_affine_conv3x3": 0, "shear": 0, "bn_relu": 0}
     assert len(result["losses"]) == 4 and len(result["fixed_losses"]) == 10
     assert result["eval_confusion_differ"] <= 1e-3
     assert len(result["upsample"]["levels"]) == 5  # four bf16 levels and one f32
@@ -98,7 +113,7 @@ def test_fit_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "FIT_LOG_IMAGE_ITER", 2)
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     result = chip_smoke.run_fit("cpu", device="cpu")
-    assert set(result["launches"].values()) == {0}
+    assert set(result["launches"].values()) == set(result["bn_relu_launches"].values()) == {0}
     assert result["epochs"] == [0, 1, 2, 3]
     assert result["steady_train_tiles_per_s"]["cache"] > 0
     assert result["reproduction"]["pallas_fused"]["runs"] == ["first", "again", "resumed"]
@@ -114,7 +129,7 @@ def test_evaluation_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "EVAL_CHIPS", 2)
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     result = chip_smoke.run_evaluation("cpu", device="cpu")
-    assert set(result["launches"].values()) == {0}
+    assert set(result["launches"].values()) == set(result["bn_relu_launches"].values()) == {0}
     assert result["fused_vs_xla"]["argmax_agree"] == 1.0  # one code path on the CPU
     assert result["late_fusion"]["max_dprob"] <= chip_smoke.PROB_TOL
     assert result["predict"]["scenes"] == 2 and result["serve_s"]["warm"] > 0
@@ -136,7 +151,7 @@ def test_entry_points_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     kept = chip_smoke.run_evaluation("cpu", device="cpu", keep_dir=keep)["kept"]
     assert len(kept["roots"]) == 2 and all(kept["masks"].values())
     result = chip_smoke.run_entry_points("cpu", kept, device="cpu")
-    assert result["launches"] == {"xla": 0, "pallas_fused": 0}
+    assert result["launches"] == result["bn_relu_launches"] == {"xla": 0, "pallas_fused": 0}
     assert result["bench"]["xla"]["flops"] == result["bench"]["pallas_fused"]["flops"]
     assert result["batch_infer_script_masks"] == sum(len(v) for v in kept["masks"].values())
     assert not os.path.exists(keep) and not (tmp_path / "work").exists()
@@ -154,7 +169,7 @@ def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "TOOLS_LIMIT_VAL", 2)
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     result = chip_smoke.run_tools("cpu", device="cpu")
-    assert set(result["launches"].values()) == {0}
+    assert set(result["launches"].values()) == set(result["bn_relu_launches"].values()) == {0}
     assert set(result["cv"]) == {"RegionA", "RegionB"}
     assert result["ensemble"]["confusion_moved"] == 0.0  # one code path on the CPU
     assert result["serve_artifact"]["masks_equal"]
@@ -176,10 +191,14 @@ def test_data_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     result = chip_smoke.run_data_tools("cpu", device="cpu")
     assert result["launches"] == {"relu_affine_conv3x3": 0, "shear": 0}
+    assert set(result["bn_relu_launches"].values()) == {0}
     assert result["debug_nans"]["loss_gap_on_off"] == 0.0  # one code path on the CPU
     assert "after train step 2 of epoch 0" in result["debug_nans"]["raised"]
     assert result["non_square"]["augment_max_abs_err"] == 0.0
     assert result["fused_bn_false"]["loss_rel"] <= 1e-4
+    matched = result["fused_bn_false"]["matched"]  # the true step's decisions applied
+    assert matched["grad_rel_max"] <= chip_smoke.GRAD_MAX_TOL
+    assert all(v <= chip_smoke.BN_FORCED_SHARE for v in matched["forced_share"].values())
     assert "phase12/nans_poisoned" in result["tools"]["gc_listed"]
     assert not (tmp_path / "work").exists()
 
@@ -201,14 +220,14 @@ def test_multi_device_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "MD_LIMIT_VAL", 1)
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
     result = chip_smoke.run_multi_device("cpu", device="cpu")
-    assert result["launches"] == {"conv": 0, "shear": 0}
+    assert result["launches"] == {"bn_relu": 0, "conv": 0, "shear": 0}
     assert result["nccl_one_rank"]["backend"] == "gloo"  # one CPU rank
     assert result["fit"]["pod_batches_equal"][0] > 0
     assert len(result["fit"]["losses"]) == 4
     assert result["infer"]["argmax_agree"] >= 0.999
     assert result["two_cards"] is None
     spatial = result["spatial"]
-    assert spatial["launches"] == {"conv": 0, "shear": 0}
+    assert spatial["launches"] == {"bn_relu": 0, "conv": 0, "shear": 0}
     # 22 exchanges forward (two per DoubleConv, one per upsample), one
     # fewer backward: the image's needs no gradient.
     assert [c["halo"]["count"] for c in spatial["collectives_per_rank"]] == [43, 43]
