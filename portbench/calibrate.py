@@ -38,11 +38,11 @@ if ROOT not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import harness, inputs, system  # noqa: E402
+from portbench import harness, system  # noqa: E402
 from portbench.drivers import serve_requests, train_loop  # noqa: E402
+from portbench.reference import common  # noqa: E402
 from portbench.reference import data as rdata  # noqa: E402
 from portbench.reference import judge  # noqa: E402
-from portbench.reference import unet as runet  # noqa: E402
 
 
 def train_upper(spec: dict, seed: int, device) -> dict:
@@ -57,14 +57,14 @@ def train_upper(spec: dict, seed: int, device) -> dict:
     steps = [order[k * b:(k + 1) * b] for k in range(int(traffic["check_steps"]))]
     g = train_loop.epoch_generator(seed, 0, device)
     draws = [torch.rand(4, b, generator=g, device=device) for _ in steps]
-    weights = inputs.weights(system.tensor_shapes(config), seed, device)
+    weights = harness.reference(config).weights(config, seed, device)
     ignore = train_loop._resolved_ignore(config)
     args = (config, seed, weights, scenes, steps, draws, config["transforms"], ignore, device)
     ref = judge.train_reference(*args)
     return {name: judge.train_numbers(judge.train_reference(*args, **kw), ref, weights)
-            for name, kw in (("control", {"quant": runet.fp8_quant}),
+            for name, kw in (("control", {"quant": common.fp8_quant}),
                              ("half_batch", {"keep_rows": b // 2}),
-                             ("witness_bf16", {"quant": runet.bf16_round}))}
+                             ("witness_bf16", {"quant": common.bf16_round}))}
 
 
 def serve_upper(spec: dict, seed: int, device) -> dict:
@@ -83,10 +83,10 @@ def serve_upper(spec: dict, seed: int, device) -> dict:
             image, _ = held.get(index, hw)
             ref = judge.scene_probabilities(config, weights, image, tile, batch, tta, device)
             low = judge.scene_probabilities(config, weights, image, tile, batch, tta, device,
-                                            quant=runet.fp8_quant)
+                                            quant=common.fp8_quant)
             numbers.append(judge.mask_numbers(np.argmax(low, axis=-1) > 0, ref))
             bf16 = judge.scene_probabilities(config, weights, image, tile, batch, tta, device,
-                                             quant=runet.bf16_round)
+                                             quant=common.bf16_round)
             witness.append(judge.mask_numbers(np.argmax(bf16, axis=-1) > 0, ref))
     return {"control": judge.worst(numbers), "witness_bf16": judge.worst(witness)}
 

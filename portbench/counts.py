@@ -1,21 +1,17 @@
-"""Work of the UNet's convolutions, from the configuration's shapes alone.
+"""The work of a forward and of a training step, from shapes alone, and the
+least time the card could take for it.
+
+A configuration's reference module lists its operations (``work(config,
+batch, height, width)``), each an ``Op``: its kind (``conv``, or any other
+name a later metric reads), and the operations and bytes of each pass it
+runs, ``fwd``, ``dgrad`` (the input's gradient) and ``wgrad`` (the
+weight's). A pass that a training step does not run, such as the first
+layer's input gradient, is absent. The counts are the algorithm's, so they
+are the same whichever implementation runs an operation; bytes are each
+input read once and each output written once.
 
 Extended from the repository's ``bench_torch.py::conv_flops`` (which reads
-the same shapes from a model's forward): every conv at the height and width
-it runs at, 2·N·H·W·C_in·C_out·k² operations. The count is the algorithm's,
-so it is the same whichever implementation runs a conv (cuDNN or the
-hand-written fused kernel):
-
-- the early- and late-fusion UNets' nine DoubleConvs (eighteen 3x3 convs)
-  and the 1x1 head; the late-fusion model's per-level 1x1 fusion convs;
-- a training step is the forward, each conv's input gradient (dgrad) and
-  weight gradient (wgrad), each as much work as its forward, less the first
-  conv's input gradient, which nothing needs: 3 x forward - that dgrad;
-- bytes: each conv's inputs read once and its output written once, in the
-  compute dtype: forward x, w -> y; dgrad dy, w -> dx; wgrad x, dy -> dw.
-
-A 2x2 max pool floors odd sizes, and the decoder pads each upsample to the
-skip's size, so level l of an input H is H // 2**l.
+the same shapes from a model's forward).
 """
 
 from __future__ import annotations
@@ -27,78 +23,56 @@ from dataclasses import dataclass
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+PASSES = ("fwd", "dgrad", "wgrad")
 
 
 @dataclass(frozen=True)
-class Conv:
+class Op:
     name: str
-    n: int
-    h: int
-    w: int
-    c_in: int
-    c_out: int
-    k: int
-
-    @property
-    def flops(self) -> float:
-        return 2.0 * self.n * self.h * self.w * self.c_in * self.c_out * self.k * self.k
-
-    def bytes(self, size: int) -> dict:
-        """Bytes of the forward, dgrad and wgrad at ``size`` bytes a value."""
-        x = self.n * self.h * self.w * self.c_in * size
-        y = self.n * self.h * self.w * self.c_out * size
-        w = self.c_in * self.c_out * self.k * self.k * size
-        return {"fwd": x + w + y, "dgrad": y + w + x, "wgrad": x + y + w}
+    kind: str
+    flops: dict  # pass -> operations
+    bytes: dict  # pass -> bytes read and written
 
 
-def convs(model: str, in_channels: int, n_classes: int, base: int, batch: int,
-          height: int, width: int) -> list[Conv]:
-    """Every conv of one forward, in order."""
-    c = base
-    hw = [(height >> level, width >> level) for level in range(5)]
-    out = []
+def conv(name: str, n: int, h: int, w: int, c_in: int, c_out: int, k: int, size: int,
+         dgrad: bool = True) -> Op:
+    """A k x k convolution (stride 1, "same" size) at ``size`` bytes a value:
+    2·N·H·W·C_in·C_out·k² operations in each pass; forward x, w -> y; dgrad
+    dy, w -> dx; wgrad x, dy -> dw. ``dgrad=False``: its input needs no
+    gradient."""
+    flops = 2.0 * n * h * w * c_in * c_out * k * k
+    x = n * h * w * c_in * size
+    y = n * h * w * c_out * size
+    wt = c_in * c_out * k * k * size
+    moved = {"fwd": x + wt + y, "dgrad": y + wt + x, "wgrad": x + y + wt}
+    if not dgrad:
+        del moved["dgrad"]
+    return Op(name, "conv", {p: flops for p in moved}, moved)
 
-    def double(name, level, c_in, c_mid, c_out):
-        h, w = hw[level]
-        out.append(Conv(name + ".conv0", batch, h, w, c_in, c_mid, 3))
-        out.append(Conv(name + ".conv1", batch, h, w, c_mid, c_out, 3))
 
-    double("inc", 0, in_channels, c, c)
-    for level, (ci, co) in enumerate([(c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c),
-                                      (8 * c, 8 * c)], start=1):
-        double(f"down{level}", level, ci, co, co)
-    if model == "lf_model":
-        for level, w in enumerate((c, 2 * c, 4 * c, 8 * c, 8 * c)):
-            out.append(Conv(f"concat{level}", batch, *hw[level], w, w, 1))
-    elif model not in ("ef_model", "ms_model"):
-        raise ValueError(f"no conv count for model {model!r}")
-    for i, (level, ci, cm, co) in enumerate([(3, 16 * c, 8 * c, 4 * c), (2, 8 * c, 4 * c, 2 * c),
-                                             (1, 4 * c, 2 * c, c), (0, 2 * c, c, c)], start=1):
-        double(f"up{i}", level, ci, cm, co)
-    out.append(Conv("outc", batch, *hw[0], c, n_classes, 1))
+def forward_flops(ops: list[Op]) -> float:
+    return sum(op.flops["fwd"] for op in ops)
+
+
+def train_flops(ops: list[Op]) -> float:
+    """Every pass of every operation."""
+    return sum(op.flops[p] for op in ops for p in PASSES if p in op.flops)
+
+
+def by_kind(ops: list[Op], dtype: str, train: bool) -> dict:
+    """{kind: {"flops", "bytes", "bound_s"}} of a forward (with ``train``, a
+    training step): the operations and bytes of each kind's passes, and the
+    least time the card could take for them: per operation and pass the
+    larger of operations over the dtype's peak and bytes over the
+    bandwidth, summed."""
+    peak, passes = PEAK_FLOPS[dtype], PASSES if train else ("fwd",)
+    out: dict = {}
+    for op in ops:
+        total = out.setdefault(op.kind, {"flops": 0.0, "bytes": 0, "bound_s": 0.0})
+        for p in passes:
+            if p in op.flops:
+                total["flops"] += op.flops[p]
+                total["bytes"] += op.bytes[p]
+                total["bound_s"] += max(op.flops[p] / peak, op.bytes[p] / PEAK_BYTES)
     return out
 
-
-def forward_flops(cs: list[Conv]) -> float:
-    return sum(c.flops for c in cs)
-
-
-def train_flops(cs: list[Conv]) -> float:
-    """3 x forward, less the first conv's input gradient."""
-    return 3.0 * forward_flops(cs) - cs[0].flops
-
-
-def bound_seconds(cs: list[Conv], dtype: str, train: bool) -> float:
-    """The least time the card could take for these convs: per conv and
-    pass, the larger of operations over the peak and bytes over the
-    bandwidth, summed (a forward; with ``train`` also every dgrad but the
-    first conv's, and every wgrad)."""
-    peak, size = PEAK_FLOPS[dtype], DTYPE_BYTES[dtype]
-    total = 0.0
-    for i, c in enumerate(cs):
-        passes = ("fwd", "dgrad", "wgrad") if train else ("fwd",)
-        for p in passes:
-            if p == "dgrad" and i == 0:
-                continue
-            total += max(c.flops / peak, c.bytes(size)[p] / PEAK_BYTES)
-    return total

@@ -34,8 +34,7 @@ import numpy as np
 import torch
 
 from portbench import counts, harness, inputs, system
-from portbench.reference import judge
-from portbench.reference import unet as runet
+from portbench.reference import common, judge
 
 
 def pool(config: dict, traffic: dict) -> list:
@@ -103,12 +102,14 @@ def traced_calls(forward_events: list):
 
 
 def eval_weights(config: dict, traffic: dict, roots: list, seed: int, device) -> dict:
-    """The benchmark's weights for serving: ``inputs.weights`` with running
-    statistics set to the batch statistics of four tiles of the pool's
-    first scene, so that the eval forward normalizes as training would."""
+    """The benchmark's weights for serving: the reference's ``weights`` with
+    running statistics (where the model has any) set to the batch
+    statistics of four tiles of the pool's first scene, so that the eval
+    forward normalizes as training would."""
     from portbench.reference import data as rdata
 
-    weights = inputs.weights(system.tensor_shapes(config), seed, device)
+    ref = harness.reference(config)
+    weights = ref.weights(config, seed, device)
     index, _, _, hw = roots[0][1][0]
     image, label = inputs.scene(config, seed, index, hw, device)
     image = rdata.normalize(image, config["sensor"])
@@ -116,8 +117,8 @@ def eval_weights(config: dict, traffic: dict, roots: list, seed: int, device) ->
     windows = rdata.crop_slices(hw[0], hw[1], tile, tile)[:4]
     x = np.stack([rdata.crop(image, label, w, tile, 0)[0] for w in windows])
     x = torch.from_numpy(x).to(device).permute(0, 3, 1, 2).contiguous()
-    with runet.no_tf32():
-        weights.update(runet.batch_statistics(config["model"], weights, x))
+    with common.no_tf32():
+        weights.update(ref.batch_statistics(config, weights, x))
     return weights
 
 
@@ -210,8 +211,8 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device, t0: float,
     numbers = check(spec, seed, roots, done, device)
     checks = judge.within(numbers, spec["limits"])
 
-    cs = counts.convs(config["model"], config["in_channels"], config["n_classes"],
-                      config["model_kwargs"]["base_feat_channels"], batch, tile, tile)
+    ops = harness.reference(config).work(config, batch, tile, tile)
+    work = counts.by_kind(ops, config["compute_dtype"], False)
     walls = [d["wall"] for d in ok]
     e2e = {"infer_tiles_per_s": tiles / elapsed}
     if walls:
@@ -232,8 +233,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device, t0: float,
            "requests": requests if trace else None,
            "forward_ms": [a.elapsed_time(b) for d in ok for a, b in d["events"]] or None,
            "peak_flops": counts.PEAK_FLOPS[config["compute_dtype"]],
-           "forward_flops_per_batch": counts.forward_flops(cs),
-           "conv_bound_s_per_batch": counts.bound_seconds(cs, config["compute_dtype"], False)}
+           "forward_flops_per_batch": counts.forward_flops(ops),
+           "conv_bound_s_per_batch": work.get("conv", {}).get("bound_s"),
+           "work_by_kind": work}
     return {"attempted": len(done), "failed": failed, "setup_s": setup_s,
             "memory_peak_bytes": peak, "e2e": e2e, "ctx": ctx, "checks": checks,
             "numbers": numbers}

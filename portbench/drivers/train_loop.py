@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import counts, harness, inputs, system
+from portbench import counts, harness, system
 from portbench.reference import judge
 
 
@@ -67,7 +67,7 @@ class Loop:
         self.build = make_batch_builder(self.cache)
         self.batch_size = int(config["batch_size"])
         self.model = system.model(cfg, config, device,
-                                  inputs.weights(system.tensor_shapes(config), seed, device))
+                                  harness.reference(config).weights(config, seed, device))
         self.state = create_train_state(self.model, None, lr=cfg.lr,
                                         optimizer_name=cfg.model.model_kwargs.optimizer_name)
         self.ignore_index = resolve_ignore_index(cfg.ignore_index, config["n_classes"])
@@ -174,7 +174,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device, t0: float,
         g = torch.Generator(device=device)
         g.set_state(state)
         draws.append(torch.rand(4, int(config["batch_size"]), generator=g, device=device))
-    weights = inputs.weights(system.tensor_shapes(config), seed, device)
+    weights = harness.reference(config).weights(config, seed, device)
     reference = judge.train_reference(
         config, seed, weights, system.scene_list(config, harness.sizes(traffic["scenes"])),
         [idx for idx, _, _ in captured], draws, config["transforms"],
@@ -182,16 +182,17 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device, t0: float,
     numbers = judge.train_numbers(program, reference, weights)
     checks = judge.within(numbers, spec["limits"])
 
-    cs = counts.convs(config["model"], config["in_channels"], config["n_classes"],
-                      config["model_kwargs"]["base_feat_channels"], int(config["batch_size"]),
-                      config["crop"], config["crop"])
+    ops = harness.reference(config).work(config, int(config["batch_size"]), config["crop"],
+                                         config["crop"])
+    work = counts.by_kind(ops, config["compute_dtype"], True)
     tiles = steps * int(config["batch_size"])
     ctx = {"trace": trace_out, "trace_steps": int(traffic["trace_steps"]),
            "events": _event_ms(events),
            "window": {"seconds": elapsed, "steps": steps, "tiles": tiles},
            "peak_flops": counts.PEAK_FLOPS[config["compute_dtype"]],
-           "train_flops_per_step": counts.train_flops(cs),
-           "conv_bound_s_per_step": counts.bound_seconds(cs, config["compute_dtype"], True)}
+           "train_flops_per_step": counts.train_flops(ops),
+           "conv_bound_s_per_step": work.get("conv", {}).get("bound_s"),
+           "work_by_kind": work}
     return {"attempted": steps, "failed": 0, "setup_s": setup_s, "memory_peak_bytes": peak,
             "e2e": {"train_tiles_per_s": tiles / elapsed}, "ctx": ctx, "checks": checks,
             "numbers": numbers}

@@ -5,8 +5,22 @@ per-layer metric readers; the result line.
 A cell names a configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<traffic>.json``, whose ``kind`` names its driver,
 ``drivers/<kind>.py``); its correctness limits are ``limits/<cell>.json``;
-a per-layer metric's reader is ``metrics/<metric>.py``. Adding any of them
-takes new files and entries in ``BENCHMARK.json``, no edit here.
+a per-layer metric's reader is ``metrics/<metric>.py``. A metric named
+``<base>.<variant>`` with no value or reader of its own is a variant of
+``<base>``: the same quantity for the cells it lists, under a bound of its
+own (so a cell whose runs spread more than the others' takes a wider bound
+as entries alone). A configuration names its model's plain reference
+(``"reference": "<module>"``, ``reference/<module>.py``: its tensors,
+weights, training steps, served probabilities, batch statistics and
+operation counts; the interface is in ``reference/__init__.py``), and
+``"overrides"``: the port's configuration keys that its cells set beyond
+the harness's own. The drivers, the judge and the counts name no model.
+
+So a configuration of a model the benchmark has, a traffic mix of a kind
+it has, a cell, its limits or a per-layer metric is new files and entries
+in ``BENCHMARK.json``; a model it does not have is also a new reference
+module. No edit here or in the drivers. The port itself has to build the
+model by the configuration's ``model`` name.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ KERNEL_CLASSES = [
     ("cuDNN conv", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad", "dgrad")),
     ("optimizer", ("adam",)),
     ("reductions", ("reduce",)),
+    ("BatchNorm-ReLU kernels", ("bnrelu",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy", "fill")),
 ]
 
@@ -81,9 +96,20 @@ def metrics_for(bench: dict, cell: str, section: str) -> list[dict]:
     return [m for m in bench[section] if cell in m.get("workloads", [cell])]
 
 
+def variant_value(values: dict, name: str):
+    """``values[name]``; for a variant ``<base>.<variant>`` that ``values``
+    does not hold, its base's value; None where neither is there."""
+    while name not in values and "." in name:
+        name = name.rsplit(".", 1)[0]
+    return values.get(name)
+
+
 def reader(name: str):
-    """``metrics/<name>.py``'s ``read(ctx) -> float | None``."""
+    """``metrics/<name>.py``'s ``read(ctx) -> float | None``; a variant
+    ``<base>.<variant>`` without a file of its own reads with its base's."""
     path = os.path.join(HERE, "metrics", name + ".py")
+    if not os.path.exists(path) and "." in name:
+        return reader(name.rsplit(".", 1)[0])
     spec = importlib.util.spec_from_file_location("portbench_metric_" + name.replace(".", "_"),
                                                   path)
     module = importlib.util.module_from_spec(spec)
@@ -93,6 +119,11 @@ def reader(name: str):
 
 def driver(kind: str):
     return importlib.import_module(f"portbench.drivers.{kind}")
+
+
+def reference(config: dict):
+    """The reference module that ``config`` names."""
+    return importlib.import_module(f"portbench.reference.{config['reference']}")
 
 
 def pin_caches(root: str) -> None:

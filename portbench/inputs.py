@@ -78,7 +78,7 @@ def write_scene(config: dict, root: str, name: str, image: np.ndarray, label: np
 
 
 def weights(shapes: list, seed: int, device="cuda") -> dict:
-    """float32 tensors for [(name, shape, kind)] (reference/unet.py's
+    """float32 tensors for [(name, shape, kind)] (a reference module's
     ``tensor_shapes``) from ``seed``, in two draws on the card: He-normal
     conv weights (std sqrt(2 / fan_in)); BatchNorm scale 1 + 0.1 n and bias
     0.1 n; conv biases 0.1 n; running mean 0 and variance 1."""

@@ -1,7 +1,8 @@
 """The whole forward's share of the card's peak in serving: the
-convolutions' operations of every model forward of the traced run's window
-(batches, times eight under TTA; ``portbench/counts.py``) over the window's
-host seconds times the dense peak of the compute dtype, in percent."""
+operations of every model forward of the traced run's window (batches,
+times eight under TTA; the reference module's ``work``,
+``portbench/counts.py``) over the window's host seconds times the dense
+peak of the compute dtype, in percent."""
 
 
 def read(ctx):

@@ -1,7 +1,8 @@
-"""The whole training step's share of the card's peak: the convolutions'
-operations of every step of the traced run's window (``portbench/counts.py``:
-3 x forward less the first conv's dgrad) over the window's host seconds
-times the dense peak of the compute dtype, in percent."""
+"""The whole training step's share of the card's peak: the operations of
+every step of the traced run's window (the reference module's ``work``,
+every pass of every operation, ``portbench/counts.py``; for the UNet its
+convs, 3 x forward less the first conv's dgrad) over the window's host
+seconds times the dense peak of the compute dtype, in percent."""
 
 
 def read(ctx):

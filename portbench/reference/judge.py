@@ -5,11 +5,11 @@ Training (the first steps of the run, through the window's own call and
 feed): each step's loss; the first gradient as the optimizer holds it
 (Adam's first moment after one step over 1 - beta1); the change of every
 parameter over the steps; the change of every BatchNorm running
-statistic. Each but the loss by the worst leaf and by the median leaf: the
-gap between the two norms, over the larger of the reference's norm of that
-leaf and of the median leaf. Parameters whose reference gradient is under
-a thousandth of the median leaf's move by round-off alone and are left out
-of the change.
+statistic (for a model that has them). Each but the loss by the worst leaf
+and by the median leaf: the gap between the two norms, over the larger of
+the reference's norm of that leaf and of the median leaf. Parameters whose
+reference gradient is under a thousandth of the median leaf's move by
+round-off alone and are left out of the change.
 
 Serving (requests of the window, sampled from the seed, the largest among
 them): the served mask against the reference's probabilities. The mask is
@@ -31,9 +31,9 @@ import math
 import numpy as np
 import torch
 
-from portbench import inputs
+from portbench import harness, inputs
+from portbench.reference import common
 from portbench.reference import data as rdata
-from portbench.reference import unet as runet
 
 
 def _norms(tensors: dict) -> dict:
@@ -53,7 +53,8 @@ def train_numbers(program: dict, reference: dict, before: dict) -> dict:
     """The training numbers of the module docstring: ``loss``, ``grad``,
     ``change``, ``stats`` by the worst leaf (the loss by the worst step),
     ``loss_first`` (the first step's), and ``grad_median``,
-    ``change_median``, ``stats_median`` by the median leaf. ``program`` and
+    ``change_median``, ``stats_median`` by the median leaf; the two of
+    ``stats`` only where there are running statistics. ``program`` and
     ``reference`` hold ``losses``, ``first_grads`` (name -> tensor) and
     ``after`` (name -> tensor, parameters and running statistics);
     ``before`` the common starting point."""
@@ -69,10 +70,12 @@ def train_numbers(program: dict, reference: dict, before: dict) -> dict:
                      for k in moved + stats})
     changes = _gaps(d_prog, d_ref, moved)
     stat_gaps = _gaps(d_prog, d_ref, stats)
-    return {"loss": max(losses), "grad": max(grads), "change": max(changes),
-            "stats": max(stat_gaps), "loss_first": losses[0],
-            "grad_median": float(np.median(grads)), "change_median": float(np.median(changes)),
-            "stats_median": float(np.median(stat_gaps))}
+    numbers = {"loss": max(losses), "grad": max(grads), "change": max(changes),
+               "stats": max(stat_gaps, default=None), "loss_first": losses[0],
+               "grad_median": float(np.median(grads)),
+               "change_median": float(np.median(changes)),
+               "stats_median": float(np.median(stat_gaps)) if stat_gaps else None}
+    return {k: v for k, v in numbers.items() if v is not None}
 
 
 class Scenes:
@@ -121,9 +124,9 @@ def train_reference(config: dict, seed: int, weights: dict, scenes: list, steps:
         if keep_rows is not None:
             image, label = image[:keep_rows], label[:keep_rows]
         batches.append((image, label))
-    with runet.no_tf32():
-        return runet.train_steps(config["model"], weights, batches, ignore_index,
-                                 config["lr"], quant=quant)
+    with common.no_tf32():
+        return harness.reference(config).train_steps(config, weights, batches, ignore_index,
+                                                     quant=quant)
 
 
 def scene_probabilities(config: dict, weights: dict, image: np.ndarray, tile: int,
@@ -135,12 +138,13 @@ def scene_probabilities(config: dict, weights: dict, image: np.ndarray, tile: in
     windows = rdata.crop_slices(h, w, tile, tile)
     out = np.zeros((h, w, config["n_classes"]), np.float32)
     label = np.zeros((h, w), np.int32)
-    with runet.no_tf32(), torch.no_grad():
+    ref = harness.reference(config)
+    with common.no_tf32(), torch.no_grad():
         for start in range(0, len(windows), batch):
             part = windows[start:start + batch]
             tiles = np.stack([rdata.crop(image, label, win, tile, 0)[0] for win in part])
             x = torch.from_numpy(tiles).to(device).permute(0, 3, 1, 2).contiguous()
-            probs = runet.d4_probabilities(config["model"], weights, x, tta, quant).cpu().numpy()
+            probs = ref.probabilities(config, weights, x, tta, quant).cpu().numpy()
             for (h0, w0, hh, ww), p in zip(part, probs):
                 out[h0:h0 + hh, w0:w0 + ww] = p[:hh, :ww]
     return out

@@ -6,40 +6,36 @@ False) with pad-to-match and the skip concatenated first, a 1x1 head with a
 bias. The late-fusion model runs one encoder per modality and a biased 1x1
 conv per level over the concatenated pyramids before the shared decoder.
 
+The reference module of the configurations whose file says ``"reference":
+"unet"`` (``model`` ``ef_model``, ``lf_model`` or ``ms_model``, and
+``model_kwargs.base_feat_channels``): the six functions of the interface
+(``portbench/reference/__init__.py``), everything UNet-specific of the
+benchmark.
+
 Everything is a function of a flat dict of named tensors; the names are the
 ones the system under test loads (``load_state_dict``), so one dict of
 weights made by the benchmark serves both sides. No kernel, cache or
 batching of the system runs here: ``torch`` operations only. TF32 must be
-off on a card (``no_tf32``) for this to be float32.
+off on a card (``common.no_tf32``) for this to be float32.
 
 ``quant`` (optional): a rounding applied wherever a network computed in a
 narrower type would store a value: the input, every conv's weight, bias
 and output, every BatchNorm-ReLU's output and every upsample's output.
-With ``bf16_round`` that is the system's own bfloat16 arithmetic (a
-witness); with ``fp8_quant`` the next precision below it (the control of
-``judge.py``).
+With ``common.bf16_round`` that is the system's own bfloat16 arithmetic (a
+witness); with ``common.fp8_quant`` the next precision below it (the
+control of ``judge.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
+from portbench import counts, inputs
+from portbench.reference import common
+
 EPS = 1e-5
 MOMENTUM = 0.9  # running = MOMENTUM * running + (1 - MOMENTUM) * batch
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """float32 matmuls and convolutions in float32 (not TF32) inside."""
-    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
 def _prefixes(model: str) -> tuple[list[str], str]:
@@ -58,11 +54,12 @@ def _double_conv_shapes(prefix: str, c_in: int, c_mid: int, c_out: int) -> list:
             *[(prefix + f"bn1.{k}", (c_out,), k) for k in ("scale", "bias", "mean", "var")]]
 
 
-def tensor_shapes(model: str, in_channels: int, n_classes: int, base: int) -> list:
+def tensor_shapes(config: dict) -> list:
     """[(name, shape, kind)] of every parameter and running statistic, kind
     one of conv (3x3 or 1x1 weight), conv_bias, scale, bias, mean, var."""
+    model, in_channels, n_classes = config["model"], config["in_channels"], config["n_classes"]
     encoders, dec = _prefixes(model)
-    c = base
+    c = config["model_kwargs"]["base_feat_channels"]
     out = []
     for enc in encoders:
         out += _double_conv_shapes(enc + "inc.", in_channels, c, c)
@@ -152,87 +149,70 @@ class UNet:
         return self.conv(x, self.dec + "outc.weight", 0, self.dec + "outc.bias")
 
 
-def cross_entropy(logits, target, ignore_index: int):
-    """Mean cross entropy over the pixels whose target is a class other than
-    ``ignore_index`` (targets outside [0, n_classes) count for nothing)."""
-    n_classes = logits.shape[1]
-    valid = (target != ignore_index) & (target >= 0) & (target < n_classes)
-    logp = torch.log_softmax(logits, dim=1)
-    picked = logp.gather(1, target.clamp(0, n_classes - 1).long()[:, None])[:, 0]
-    return -(picked * valid).sum() / valid.sum().clamp_min(1)
+def weights(config: dict, seed: int, device) -> dict:
+    """``inputs.weights`` of ``tensor_shapes``: He-normal convs, BatchNorm
+    scale 1 + 0.1 n and bias 0.1 n, running mean 0 and variance 1."""
+    return inputs.weights(tensor_shapes(config), seed, device)
 
 
-def train_steps(model: str, weights: dict, batches: list, ignore_index: int, lr: float,
+def train_steps(config: dict, weights: dict, batches: list, ignore_index: int,
                 quant=None) -> dict:
-    """Adam (betas 0.9, 0.999, eps 1e-8, bias-corrected) steps of the masked
-    cross entropy, one per (image NCHW, target) of ``batches``, from
-    ``weights``. Returns each step's loss, the first step's gradients, and
-    the parameters and running statistics after the last step."""
+    """``common.adam_steps`` of the network in train mode: BatchNorm over
+    each batch's statistics, the running statistics moved."""
+
+    def forward(p, image):
+        net = UNet(config["model"], p, train=True, quant=quant)
+        return net(image), net.running
+
     stats = {k for k in weights if k.endswith((".mean", ".var"))}
-    params = {k: v.detach().clone().requires_grad_(True) for k, v in weights.items()
-              if k not in stats}
-    running = {k: weights[k].detach().clone() for k in stats}
-    m = {k: torch.zeros_like(v) for k, v in params.items()}
-    v2 = {k: torch.zeros_like(v) for k, v in params.items()}
-    losses, first_grads = [], None
-    for t, (image, target) in enumerate(batches, start=1):
-        net = UNet(model, {**params, **running}, train=True, quant=quant)
-        loss = cross_entropy(net(image), target, ignore_index)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        losses.append(float(loss.detach()))
-        running.update(net.running)
-        with torch.no_grad():
-            if first_grads is None:
-                first_grads = {k: g.clone() for k, g in zip(params, grads)}
-            for (k, p), g in zip(params.items(), grads):
-                m[k].mul_(0.9).add_(g, alpha=0.1)
-                v2[k].mul_(0.999).addcmul_(g, g, value=0.001)
-                step = lr / (1 - 0.9 ** t)
-                denom = (v2[k] / (1 - 0.999 ** t)).sqrt().add_(1e-8)
-                p.addcdiv_(m[k], denom, value=-step)
-    after = {k: v.detach() for k, v in params.items()}
-    after.update(running)
-    return {"losses": losses, "first_grads": first_grads, "after": after}
+    return common.adam_steps(forward, config, weights, stats, batches, ignore_index)
 
 
-def d4_probabilities(model: str, weights: dict, image, tta: bool, quant=None):
-    """Eval-mode softmax [B, H, W, n_classes]; ``tta``: the mean over the
-    eight dihedral transforms of a square input, each mapped back."""
-    net = UNet(model, weights, train=False, quant=quant)
-    if not tta:
-        return torch.softmax(net(image), dim=1).permute(0, 2, 3, 1)
-    total = 0
-    for t in (False, True):
-        for fh in (False, True):
-            for fw in (False, True):
-                x = image.transpose(2, 3) if t else image
-                x = x.flip(2) if fh else x
-                x = x.flip(3) if fw else x
-                p = torch.softmax(net(x), dim=1)
-                p = p.flip(2) if fh else p
-                p = p.flip(3) if fw else p
-                total = total + (p.transpose(2, 3) if t else p)
-    return (total / 8).permute(0, 2, 3, 1)
+def probabilities(config: dict, weights: dict, image, tta: bool, quant=None):
+    """Eval-mode softmax [B, H, W, n_classes] (``common.probabilities``)."""
+    return common.probabilities(UNet(config["model"], weights, train=False, quant=quant),
+                                image, tta)
 
 
-def batch_statistics(model: str, weights: dict, image) -> dict:
+def batch_statistics(config: dict, weights: dict, image) -> dict:
     """Every BatchNorm's mean and variance over ``image``'s batch in train
     mode: running statistics under which the eval forward normalizes such
     inputs as training would."""
-    net = UNet(model, weights, train=True)
+    net = UNet(config["model"], weights, train=True)
     with torch.no_grad():
         net(image)
     return net.batch
 
 
-def bf16_round(x):
-    """Round to bfloat16 and back; gradients pass straight through."""
-    return x + (x.to(torch.bfloat16).to(x.dtype) - x).detach()
+def work(config: dict, batch: int, height: int, width: int) -> list:
+    """Every conv of one forward, in order (``counts.conv``): the nine
+    DoubleConvs' eighteen 3x3 convs and the 1x1 head; the late-fusion
+    model's per-level 1x1 fusion convs. A 2x2 max pool floors odd sizes and
+    the decoder pads each upsample to the skip's size, so level l of an
+    input H is H // 2**l. Nothing needs the first conv's input gradient."""
+    model, c = config["model"], config["model_kwargs"]["base_feat_channels"]
+    size = counts.DTYPE_BYTES[config["compute_dtype"]]
+    hw = [(height >> level, width >> level) for level in range(5)]
+    out = []
 
+    def add(name, level, c_in, c_out, k):
+        out.append(counts.conv(name, batch, *hw[level], c_in, c_out, k, size, dgrad=bool(out)))
 
-def fp8_quant(x):
-    """Round to float8 e4m3 with one scale per tensor (its largest magnitude
-    to 448, e4m3's largest finite value), back to float32."""
-    scale = x.detach().abs().amax().clamp_min(1e-30) / 448.0
-    q = (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
-    return x + (q - x).detach()  # the rounding passes gradients straight through
+    def double(name, level, c_in, c_mid, c_out):
+        add(name + ".conv0", level, c_in, c_mid, 3)
+        add(name + ".conv1", level, c_mid, c_out, 3)
+
+    if model not in ("ef_model", "lf_model", "ms_model"):
+        raise ValueError(f"no conv count for model {model!r}")
+    double("inc", 0, config["in_channels"], c, c)
+    for level, (ci, co) in enumerate([(c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c),
+                                      (8 * c, 8 * c)], start=1):
+        double(f"down{level}", level, ci, co, co)
+    if model == "lf_model":
+        for level, w in enumerate((c, 2 * c, 4 * c, 8 * c, 8 * c)):
+            add(f"concat{level}", level, w, w, 1)
+    for i, (level, ci, cm, co) in enumerate([(3, 16 * c, 8 * c, 4 * c), (2, 8 * c, 4 * c, 2 * c),
+                                             (1, 4 * c, 2 * c, c), (0, 2 * c, c, c)], start=1):
+        double(f"up{i}", level, ci, cm, co)
+    add("outc", 0, c, config["n_classes"], 1)
+    return out

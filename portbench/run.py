@@ -51,8 +51,9 @@ def measure(bench: dict, name: str, seed: int, seconds: float, trace: bool, devi
     if not trace:
         values = dict(out["e2e"], setup_s=out["setup_s"])
         for m in harness.metrics_for(bench, name, "end_to_end"):
-            if m["name"] in values:
-                metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            value = harness.variant_value(values, m["name"])
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         for m in harness.metrics_for(bench, name, "per_layer"):
             value = harness.reader(m["name"])(out["ctx"])

@@ -9,7 +9,6 @@ import os
 import shutil
 
 from portbench import inputs
-from portbench.reference import unet as runet
 
 # Sen1Floods11 v1.1's eleven hand-labelled flood events (Bonafilia et al.).
 S1F11_EVENTS = ("Bolivia", "Ghana", "India", "Mekong", "Nigeria", "Pakistan", "Paraguay",
@@ -18,8 +17,10 @@ S1F11_EVENTS = ("Bolivia", "Ghana", "India", "Mekong", "Nigeria", "Pakistan", "P
 
 def program_config(config: dict, tile: int | None = None, batch: int | None = None):
     """The port's configuration (``config.yaml`` and its groups) with the
-    configuration file's model, dataset and recipe; ``tile`` and ``batch``:
-    a serving cell's tile and ``tpu.inference_batch_size``."""
+    configuration file's model, dataset and recipe, then its
+    ``overrides`` (port keys such as ``tpu.conv_impl=pallas_fused``);
+    ``tile`` and ``batch``: a serving cell's tile and
+    ``tpu.inference_batch_size``."""
     from floodplanet_code_tpu_torch.config import compose
 
     crop = tile or config["crop"]
@@ -31,6 +32,7 @@ def program_config(config: dict, tile: int | None = None, batch: int | None = No
                  f"tpu.compute_dtype={config['compute_dtype']}", "n_workers=4",
                  "norm_mode=null"]
     overrides += [f"model.model_kwargs.{k}={v}" for k, v in config["model_kwargs"].items()]
+    overrides.append(f"model.model_kwargs.optimizer_name={config['optimizer']}")
     t = config["transforms"]
     for name in ("hflip", "vflip", "rotate"):
         overrides += [f"transforms.{name}.active=true",
@@ -40,7 +42,7 @@ def program_config(config: dict, tile: int | None = None, batch: int | None = No
                   "transforms.rotate.fill_ignore=false"]
     if batch is not None:
         overrides.append(f"tpu.inference_batch_size={batch}")
-    return compose(overrides=overrides)
+    return compose(overrides=overrides + list(config.get("overrides", [])))
 
 
 def scene_list(config: dict, sizes: list, region: str | None = None) -> list:
@@ -85,11 +87,6 @@ def dataset(cfg, root: str, split_regions: list, tile: int, stride: int):
         norm_mode=cfg.norm_mode, eval_region=sorted(set(split_regions)),
         ignore_index=cfg.ignore_index, seed_num=cfg.seed_num,
         train_split_pct=cfg.train_split_pct)
-
-
-def tensor_shapes(config: dict) -> list:
-    return runet.tensor_shapes(config["model"], config["in_channels"], config["n_classes"],
-                               config["model_kwargs"]["base_feat_channels"])
 
 
 def model(cfg, config: dict, device, weights: dict):

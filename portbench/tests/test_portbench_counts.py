@@ -1,5 +1,7 @@
-"""portbench/counts.py against a count by hand at the configurations' real
-widths, and against torch's FLOP counter on the plain reference model."""
+"""The UNet reference's operation counts (``reference/unet.py::work``,
+summed by ``portbench/counts.py``) against a count by hand at the
+configurations' real widths, and against torch's FLOP counter on the plain
+reference model."""
 
 import json
 import os
@@ -43,11 +45,11 @@ def _hand(c_in, base, n_classes, batch, h, late):
 def test_counts_match_a_hand_count_at_the_real_widths(name, late):
     cfg = _config(name)
     base, crop, batch = cfg["model_kwargs"]["base_feat_channels"], cfg["crop"], cfg["batch_size"]
-    cs = counts.convs(cfg["model"], cfg["in_channels"], cfg["n_classes"], base, batch, crop, crop)
+    ops = runet.work(cfg, batch, crop, crop)
     hand = _hand(cfg["in_channels"], base, cfg["n_classes"], batch, crop, late)
-    assert [c.flops for c in cs] == hand
-    assert counts.forward_flops(cs) == sum(hand)
-    assert counts.train_flops(cs) == 3 * sum(hand) - hand[0]
+    assert [op.flops["fwd"] for op in ops] == hand and {op.kind for op in ops} == {"conv"}
+    assert counts.forward_flops(ops) == sum(hand)
+    assert counts.train_flops(ops) == 3 * sum(hand) - hand[0]
     # the EF forward of one 300^2 tile is 0.113 TFLOP (bench_torch.py's
     # 0.33 TFLOP a 512^2 tile, scaled by the pixels, less the odd levels)
     if name == "ef_unet_ps":
@@ -57,26 +59,24 @@ def test_counts_match_a_hand_count_at_the_real_widths(name, late):
 @pytest.mark.parametrize("name", ["ef_unet_ps", "lf_unet_s1f11"])
 def test_counts_match_torch_flop_counter_on_the_reference(name):
     cfg = _config(name)
-    base = cfg["model_kwargs"]["base_feat_channels"]
-    shapes = runet.tensor_shapes(cfg["model"], cfg["in_channels"], cfg["n_classes"], base)
-    p = {n: torch.zeros(s, device="meta") for n, s, _ in shapes}
+    p = {n: torch.zeros(s, device="meta") for n, s, _ in runet.tensor_shapes(cfg)}
     x = torch.zeros((2, cfg["in_channels"], cfg["crop"], cfg["crop"]), device="meta")
     with FlopCounterMode(display=False) as counter:
         runet.UNet(cfg["model"], p, train=False)(x)
     got = counter.get_flop_counts()["Global"][torch.ops.aten.convolution]
-    cs = counts.convs(cfg["model"], cfg["in_channels"], cfg["n_classes"], base, 2, cfg["crop"],
-                      cfg["crop"])
-    assert got == counts.forward_flops(cs)
+    assert got == counts.forward_flops(runet.work(cfg, 2, cfg["crop"], cfg["crop"]))
 
 
 def test_bytes_and_bound_of_one_conv():
-    c = counts.Conv("x", 10, 300, 300, 64, 64, 3)
+    c = counts.conv("x", 10, 300, 300, 64, 64, 3, 2)
     x = y = 10 * 300 * 300 * 64 * 2
     w = 64 * 64 * 9 * 2
-    assert c.bytes(2) == {"fwd": x + w + y, "dgrad": y + w + x, "wgrad": x + y + w}
+    assert c.bytes == {"fwd": x + w + y, "dgrad": y + w + x, "wgrad": x + y + w}
     flops = 2 * 10 * 300 * 300 * 64 * 64 * 9
-    assert counts.bound_seconds([c], "bfloat16", False) == max(flops / 989e12,
-                                                               (x + w + y) / 3.35e12)
-    # training: the first conv's dgrad is not counted
-    assert counts.bound_seconds([c], "bfloat16", True) == pytest.approx(
-        2 * max(flops / 989e12, (x + w + y) / 3.35e12))
+    one = max(flops / 989e12, (x + w + y) / 3.35e12)
+    forward = counts.by_kind([c], "bfloat16", False)
+    assert forward == {"conv": {"flops": flops, "bytes": x + w + y, "bound_s": one}}
+    assert counts.by_kind([c], "bfloat16", True)["conv"]["bound_s"] == pytest.approx(3 * one)
+    # training: an input that needs no gradient has no dgrad
+    first = counts.conv("x", 10, 300, 300, 64, 64, 3, 2, dgrad=False)
+    assert counts.by_kind([first], "bfloat16", True)["conv"]["bound_s"] == pytest.approx(2 * one)

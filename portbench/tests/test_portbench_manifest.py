@@ -15,6 +15,9 @@ from portbench import harness
 ROOT = os.path.dirname(harness.HERE)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# What a configuration's reference module exposes (portbench/reference/__init__.py).
+REFERENCE_FUNCTIONS = ("tensor_shapes", "weights", "train_steps", "probabilities",
+                       "batch_statistics", "work")
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +28,8 @@ def bench():
 def test_every_cell_finds_its_files_by_name(bench):
     for cell in bench["workloads"]:
         spec = harness.cell_files(bench, cell["name"])
-        assert spec["config"]["model"] in ("ef_model", "lf_model")
+        reference = harness.reference(spec["config"])
+        assert all(callable(getattr(reference, f)) for f in REFERENCE_FUNCTIONS)
         assert harness.driver(spec["traffic"]["kind"]).run
         assert spec["limits"], cell["name"]
     for metric in bench["per_layer"]:
@@ -44,7 +48,7 @@ def test_manifest_keeps_the_contract(bench):
         assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
         assert c["file"].startswith("portbench/") and os.path.exists(os.path.join(ROOT, c["file"]))
         with open(os.path.join(ROOT, c["file"])) as handle:
-            assert json.load(handle)["reduced"] == c["reduced"] == []
+            assert json.load(handle)["reduced"] == c["reduced"]
     for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and NAME.match(w["name"])
         assert w["chips"] == 1 and len(w["why"]) <= 200
@@ -62,6 +66,23 @@ def test_manifest_keeps_the_contract(bench):
         assert "setup_s" in reported and len(reported) >= 2
         layer = harness.metrics_for(bench, cell, "per_layer")
         assert layer and all(m["moves"] in reported for m in layer)
+
+
+def test_a_variant_reads_as_its_base(bench):
+    """A metric ``<base>.<variant>`` with no value or reader of its own
+    reads its base's; no cell reports both a metric and a variant of it."""
+    assert harness.variant_value({"train_tiles_per_s": 2.0}, "train_tiles_per_s.host_paced") == 2.0
+    assert harness.variant_value({"a": 1.0, "a.b": 3.0}, "a.b") == 3.0
+    assert harness.variant_value({"a": 1.0}, "b.c") is None
+    ctx = {"window": {"steps": 10, "seconds": 2.0}, "train_flops_per_step": 1e12,
+           "peak_flops": 1e15}
+    assert harness.reader("step_mfu.train.host_paced")(ctx) == harness.reader("step_mfu.train")(ctx)
+    with pytest.raises(FileNotFoundError):
+        harness.reader("no_such_metric.train")
+    for cell in (w["name"] for w in bench["workloads"]):
+        for section in ("end_to_end", "per_layer"):
+            names = [m["name"] for m in harness.metrics_for(bench, cell, section)]
+            assert not [n for n in names for b in names if n.startswith(b + ".")], (cell, names)
 
 
 def test_a_cell_added_as_new_files_alone_is_picked_up(tmp_path):
